@@ -5,12 +5,22 @@
     python3 chip_smoke.py --steps 100   # the 64 x 100 baseline rollout
 
 Run from the root of a checkout on a machine with an NVIDIA H100. It
-builds the port's CUDA kernels from the sources in the checkout, holds
-each kernel against its plain PyTorch version on the card, drives the
-port's main path (the ensemble rollout of the backward-step case at full
-width, from a seeded random init) and checks that the path went through
-the kernels. Every phase prints its seconds; any failed check exits
-non-zero. The last line of standard output is
+builds the port's CUDA kernels from the sources in the checkout (one
+``nvcc`` per source, all started together), holds each kernel against
+its plain PyTorch version on the card, and drives the port's paths,
+each with the launch counts set to 0 just before it and read just after:
+
+  * the ensemble rollout of the backward-step case at full width, from a
+    seeded random init, through the fused coupling K2 (phase "slice");
+  * training at full width through the CLI, ``python -m
+    tpuflow_torch.cli.train``, in-process on a small fixture: every
+    coupling forward launches K2, its backward differentiates the plain
+    version; then a resume from the saved checkpoint (phase "train");
+  * the coupling-apply entry point ``kernels.coupling_apply``, forward,
+    reverse and gradient, through K1 (phase "K1 vs plain").
+
+Every phase prints its seconds; any failed check exits non-zero. The
+last line of standard output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": 1}}
 
@@ -25,6 +35,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -35,6 +46,15 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 N_MEMBERS, TAU = 64, 0.85
+PEAK_F32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
+K1_SOURCE = "tpuflow_torch/kernels/csrc/coupling_apply.cu"
+K1_REPLACES = "tpuflow/kernels/coupling_pallas.py:52"
+# K1 at the shapes of the three Glow scales' couplings with 64 members
+# (bench.py:377 times the first).
+K1_SHAPES = [(64, 32, 64, 6), (64, 16, 32, 12), (64, 8, 16, 24)]
+# Operations per element of K1: shift, min, abs, negate, exp, log1p,
+# subtract, exp, add, multiply, and the logdet add.
+K1_OPS_PER_ELEMENT = 11
 K2_SOURCE = "tpuflow_torch/kernels/csrc/coupling_fused.cu"
 K2_REPLACES = "tpuflow/kernels/coupling_fused.py:119"
 # Kernel vs plain version: y max abs error, logdet error relative to
@@ -45,6 +65,25 @@ K2_REPLACES = "tpuflow/kernels/coupling_fused.py:119"
 # and still catches a fault of the bf16 instantiation alone.
 TOL = {"float32": (1e-4, 1e-5), "bfloat16": (5e-3, 1e-3)}
 ROUNDTRIP_TOL = 1e-4  # the BASELINE invertibility gate, f32
+# K1 vs plain, the JAX package's tolerances (tests/test_kernels.py:38-39,
+# 47, 67): y within 1e-6 + 1e-6 |y|, logdet 1e-5 relative to max(1, |ld|),
+# roundtrip 1e-5, gradients within 1e-5 + 1e-5 |g|. Both sides compute
+# the same float32 expressions; only libm and the summation order differ.
+K1_TOL_Y, K1_TOL_LD, K1_TOL_RT, K1_TOL_GRAD = 1e-6, 1e-5, 1e-5, 1e-5
+# Training, one f32 window with the kernel forward against the same
+# window with the plain forward: loss 1e-5 relative, each gradient
+# 1e-3 x max(1, max |g|). Both backwards run the same plain code; they
+# differ by the forwards' summation order (~5e-7 per coupling output),
+# carried through 2 steps x 24 couplings and, for a bias, summed over
+# the 4096 pixels of a batch-2 scale-0 plane with cancellation (worst
+# seen on an H100: 1.3e-4, a joint_0 bias). A fault in the kernel moves
+# gradients by O(1) of their size.
+TRAIN_TOL_LOSS, TRAIN_TOL_GRAD = 1e-5, 1e-3
+# The training phase's fixture: 8 trajectories of 16 steps, batch 8,
+# window 8, 2 epochs: 2 windows per epoch, 4 optimizer steps.
+TRAIN_ARGS = ["data.n_train_traj=8", "data.train_steps=16", "data.batch_size=8",
+              "data.window=8", "train.log_every=1"]
+TRAIN_EPOCHS = 2
 # f32 rollout stats, kernel on the card vs plain on the CPU, relative to
 # max(1, max |reference|): 24 reverse couplings carry the summation-order
 # differences of every conv into the sampled fields.
@@ -83,6 +122,31 @@ def time_ms(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_graph_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph, replayed between CUDA events, so the host's cost per call (the
+    Python wrapper, allocation, the launch itself) is not in the number."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -326,6 +390,311 @@ def reference_phase(cfg, dev):
               f"f32 rollout {k} vs plain reference")
 
 
+def k1_phase(dev):
+    """K1 against its plain version at the three scales' shapes: forward,
+    reverse, determinism, roundtrip, gradients and time per launch;
+    returns the kernels-line entry (without launches)."""
+    import torch
+
+    from tpuflow_torch.kernels.coupling_apply import coupling_apply, coupling_apply_reference
+
+    gen = torch.Generator().manual_seed(7)
+    shapes, worst = [], 0.0
+    for shape in K1_SHAPES:
+        x, raw, t = ((scale * torch.randn(shape, generator=gen)).to(dev)
+                     for scale in (1.0, 0.5, 1.0))
+        for reverse in (False, True):
+            y, ld = coupling_apply(x, raw, t, reverse=reverse)
+            y2, ld2 = coupling_apply(x, raw, t, reverse=reverse)
+            y_ref, ld_ref = coupling_apply_reference(x, raw, t, reverse=reverse)
+            torch.cuda.synchronize()
+            err_y = (y - y_ref).abs().max().item()
+            ok_y = bool(((y - y_ref).abs() <= K1_TOL_Y + K1_TOL_Y * y_ref.abs()).all())
+            err_ld = ((ld - ld_ref).abs() / ld_ref.abs().clamp_min(1.0)).max().item()
+            print(f"  {shape} reverse={reverse}: y err {err_y:.3e} (tol {K1_TOL_Y} + "
+                  f"{K1_TOL_Y} |y|), ld rel err {err_ld:.3e} (tol {K1_TOL_LD})", flush=True)
+            check(ok_y and err_ld <= K1_TOL_LD and bool(torch.isfinite(y).all()),
+                  f"K1 vs plain at {shape} reverse={reverse}")
+            check(torch.equal(y, y2) and torch.equal(ld, ld2), f"K1 deterministic at {shape}")
+            worst = max(worst, err_y)
+        y, _ = coupling_apply(x, raw, t)
+        x_rec, _ = coupling_apply(y, raw, t, reverse=True)
+        err_rt = (x_rec - x).abs().max().item()
+        print(f"  {shape} roundtrip err {err_rt:.3e} (tol {K1_TOL_RT})", flush=True)
+        check(err_rt <= K1_TOL_RT, f"K1 roundtrip at {shape}")
+        for reverse in (False, True):
+            grads = []
+            for fn in (coupling_apply, coupling_apply_reference):
+                xs = [a.clone().requires_grad_() for a in (x, raw, t)]
+                y, ld = fn(*xs, reverse=reverse)
+                (y.pow(2).sum() + 0.5 * ld.pow(2).sum()).backward()
+                grads.append([a.grad for a in xs])
+            err_g = max((a - b).abs().max().item() for a, b in zip(*grads))
+            ok_g = all(bool(((a - b).abs() <= K1_TOL_GRAD + K1_TOL_GRAD * b.abs()).all())
+                       for a, b in zip(*grads))
+            print(f"  {shape} reverse={reverse} gradients of sum y^2 + sum ld^2 / 2: max abs "
+                  f"err {err_g:.3e} (tol {K1_TOL_GRAD} + {K1_TOL_GRAD} |g|)", flush=True)
+            check(ok_g, f"K1 gradients at {shape} reverse={reverse}")
+
+        # Device time (graph replay of 100 launches) and, for the record,
+        # back-to-back eager calls, which the host's cost per call bounds.
+        ms = time_graph_ms(lambda: coupling_apply(x, raw, t), 100)
+        plain_ms = time_graph_ms(lambda: coupling_apply_reference(x, raw, t), 100)
+        eager_ms = time_ms(lambda: coupling_apply(x, raw, t), 200)
+        plain_eager_ms = time_ms(lambda: coupling_apply_reference(x, raw, t), 200)
+        b, d = shape[0], math.prod(shape[1:])
+        nbytes = 16 * b * d + 4 * b  # x, raw, t read once; y, ld written once
+        t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+        t_ops = K1_OPS_PER_ELEMENT * b * d / PEAK_F32_FLOPS * 1e3
+        shapes.append(dict(shape=list(shape), ms=ms, plain_ms=plain_ms,
+                           bound_ms=max(t_ops, t_bytes),
+                           bound_by="bytes" if t_bytes >= t_ops else "operations",
+                           gbytes_per_s=nbytes / ms / 1e6, eager_ms=eager_ms,
+                           plain_eager_ms=plain_eager_ms))
+        print(f"  {shape} K1 {ms:.5f} ms/launch in a graph (bound {max(t_ops, t_bytes):.5f} "
+              f"ms, {nbytes / ms / 1e6:.0f} GB/s), plain version {plain_ms:.5f} ms; eager "
+              f"calls {eager_ms:.5f} / plain {plain_eager_ms:.5f} ms", flush=True)
+    mean = lambda k: sum(s[k] for s in shapes) / len(shapes)  # noqa: E731
+    return {
+        "name": "coupling_apply",
+        "route": "cuda",
+        "source": K1_SOURCE,
+        "replaces": K1_REPLACES,
+        "max_abs_err": worst,
+        "ms": mean("ms"),
+        "plain_ms": mean("plain_ms"),
+        "bound_ms": mean("bound_ms"),
+        "bound_by": "bytes" if all(s["bound_by"] == "bytes" for s in shapes) else "operations",
+        "library_ms": None,  # no one PyTorch call computes it
+        "shapes": shapes,
+    }
+
+
+def k1_path_phase(dev) -> int:
+    """K1's path: the entry point as its callers use it (bench.py's
+    parity microbench): a forward and a reverse at the flagship shape,
+    then a gradient through both. Returns the launches counted."""
+    import torch
+
+    from tpuflow_torch.kernels import coupling_apply as ka
+
+    gen = torch.Generator().manual_seed(8)
+    x, raw, t = ((scale * torch.randn(K1_SHAPES[0], generator=gen)).to(dev).requires_grad_()
+                 for scale in (1.0, 0.5, 0.5))
+    ka.launches = 0
+    y, ld_f = ka.coupling_apply(x, raw, t, use_pallas=True)
+    x_rec, ld_r = ka.coupling_apply(y, raw, t, reverse=True, use_pallas=True)
+    (x_rec.pow(2).sum() + (ld_f + ld_r).sum()).backward()
+    torch.cuda.synchronize()
+    launches = ka.launches
+    err = (x_rec - x).abs().max().item()
+    finite = all(bool(torch.isfinite(a.grad).all()) for a in (x, raw, t))
+    print(f"  entry point at {K1_SHAPES[0]}: launches {launches} (expected 2), roundtrip err "
+          f"{err:.3e}, gradients finite {finite}", flush=True)
+    check(launches == 2 and err <= K1_TOL_RT and finite, "K1 entry-point path")
+    return launches
+
+
+def train_phase(cfg, dev, overrides=()) -> dict:
+    """Training at full width through the CLI, in-process: K2 launches
+    counted over the run, every window's bpd and grad norm finite, the
+    parameters changed, and a resume from the saved checkpoint.
+    ``overrides`` (key=value) shrink the model for a rehearsal."""
+    import csv
+    import tempfile
+
+    import torch
+
+    from tpuflow_torch.cli.train import main as train_main
+    from tpuflow_torch.configs import load_case, parse_cli_overrides
+    from tpuflow_torch.data import load_dataset
+    from tpuflow_torch.kernels import coupling_fused
+    from tpuflow_torch.models import TMGlow, init_lstm_state
+    from tpuflow_torch.train import Checkpointer
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        args = [*TRAIN_ARGS, *overrides, f"train.checkpoint_dir={tmp}", "--device", dev.type]
+        tcfg = load_case("backward-step", parse_cli_overrides(args[:-2]))
+        d = tcfg.data
+        win_per_epoch = (d.n_train_traj // d.batch_size) * (d.train_steps // d.window)
+        n_windows = TRAIN_EPOCHS * win_per_epoch
+        per_step = tcfg.model.n_scales * tcfg.model.n_flow_steps
+
+        coupling_fused.launches = 0
+        t0 = time.perf_counter()
+        final = train_main(["backward-step", *args, f"train.epochs={TRAIN_EPOCHS}"])
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = coupling_fused.launches
+        # data_init's one forward, then every timestep of every window.
+        expected = per_step * (1 + d.window * n_windows)
+        print(f"  {n_windows} windows (batch {d.batch_size}, window {d.window}) in "
+              f"{elapsed:.2f} s with set-up; last epoch {final['windows_per_sec']:.3f} "
+              f"windows/s; K2 launches {launches} (expected {per_step} x (1 + "
+              f"{d.window} x {n_windows}))", flush=True)
+        check(launches == expected, "K2 launch count of training")
+
+        with open(f"{tmp}/backward-step/train_log.csv") as f:
+            rows = list(csv.DictReader(f))
+        vals = [(float(r["bpd"]), float(r["grad_norm"])) for r in rows]
+        print("  per window (bpd, grad norm): "
+              + ", ".join(f"({b:.4f}, {g:.3f})" for b, g in vals), flush=True)
+        check(len(vals) == n_windows and all(math.isfinite(v) for pair in vals for v in pair),
+              "finite bpd and grad norm in every window")
+
+        saved = Checkpointer(f"{tmp}/backward-step").restore(map_location=dev)["model"]
+        init = TMGlow(tcfg.model, device=dev, seed=tcfg.train.seed)
+        ds = load_dataset(tcfg.data, tcfg.model)
+        idx = next(ds.batch_indices(d.seed, d.batch_size))
+        init.data_init(torch.from_numpy(ds.hf[idx, 0]).to(dev),
+                       torch.from_numpy(ds.lf[idx, 0]).to(dev),
+                       init_lstm_state(tcfg.model, d.batch_size, dev))
+        names = [n for n, _ in init.named_parameters()]
+        unchanged = [n for n in names if torch.equal(init.state_dict()[n], saved[n])]
+        print(f"  parameters changed: {len(names) - len(unchanged)} of {len(names)} tensors",
+              flush=True)
+        check(not unchanged, f"every parameter changed (unchanged: {unchanged[:5]})")
+
+        coupling_fused.launches = 0
+        resumed = train_main(["backward-step", *args, f"train.epochs={TRAIN_EPOCHS + 1}"])
+        torch.cuda.synchronize()
+        resume_launches = coupling_fused.launches
+        print(f"  resume: epoch {resumed['epoch']}, bpd {resumed['mean_bpd']:.4f}, K2 launches "
+              f"{resume_launches} (expected {per_step * d.window * win_per_epoch})", flush=True)
+        check(resumed["epoch"] == TRAIN_EPOCHS + 1 and math.isfinite(resumed["mean_bpd"])
+              and resume_launches == per_step * d.window * win_per_epoch, "resume")
+    return {"launches": launches, "windows_per_sec": final["windows_per_sec"],
+            "resume_launches": resume_launches}
+
+
+def train_parity_phase(cfg, dev) -> dict:
+    """One f32 window at full width, batch 2, window 2: the loss and every
+    gradient with the kernel forward against the same window with the
+    plain forward (the plain version swapped in for the kernel)."""
+    import dataclasses
+
+    import torch
+
+    from tpuflow_torch.data import load_dataset
+    from tpuflow_torch.kernels import coupling_fused
+    from tpuflow_torch.models import TMGlow, init_lstm_state
+    from tpuflow_torch.train import window_bpd_fn
+
+    mcfg = dataclasses.replace(cfg.model, compute_dtype="float32")
+    ds = load_dataset(dataclasses.replace(cfg.data, n_train_traj=2, train_steps=2), mcfg)
+    lf, hf = torch.from_numpy(ds.lf).to(dev), torch.from_numpy(ds.hf).to(dev)
+    model = TMGlow(mcfg, device=dev, seed=0)
+    model.data_init(hf[:, 0], lf[:, 0], init_lstm_state(mcfg, 2, dev))
+    perturb_(model, 6)  # non-zero coupling heads and priors
+    loss_fn = window_bpd_fn(model)
+
+    def window():
+        model.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(lf, hf, init_lstm_state(mcfg, 2, dev))
+        loss.backward()
+        return loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()}
+
+    before = coupling_fused.launches
+    loss_k, g_k = window()
+    per_step = mcfg.n_scales * mcfg.n_flow_steps
+    check(coupling_fused.launches - before == 2 * per_step, "kernel window launched K2")
+    kernel = coupling_fused.fused_coupling
+    coupling_fused.fused_coupling = coupling_fused.fused_coupling_reference
+    try:
+        loss_p, g_p = window()
+    finally:
+        coupling_fused.fused_coupling = kernel
+    err_loss = abs(loss_k - loss_p) / max(1.0, abs(loss_p))
+    errs = sorted(((g_k[n] - gp).abs().max().item() / max(1.0, gp.abs().max().item()), n)
+                  for n, gp in g_p.items())
+    worst = errs[-1][0]
+    print(f"  f32 window, kernel vs plain forward: loss {loss_k:.6f} vs {loss_p:.6f} (rel err "
+          f"{err_loss:.3e}, tol {TRAIN_TOL_LOSS}); gradient err x max(1, max|g|) (tol "
+          f"{TRAIN_TOL_GRAD}), worst of {len(errs)} tensors: "
+          + ", ".join(f"{n} {e:.3e}" for e, n in errs[:-4:-1]), flush=True)
+    check(err_loss <= TRAIN_TOL_LOSS and worst <= TRAIN_TOL_GRAD,
+          "f32 training window, kernel vs plain forward")
+    return {"loss_rel_err": err_loss, "grad_rel_err": worst}
+
+
+def train_share_phase(cfg, dev) -> dict:
+    """Windows/s of one training window at full width (bf16, batch 8,
+    window 8), and the shares of K2's forward launches and of its
+    recompute backward in it (CUDA events around each call, in a second
+    window after the uninstrumented one)."""
+    import dataclasses
+
+    import torch
+
+    from tpuflow_torch.data import load_dataset
+    from tpuflow_torch.kernels import coupling_fused
+    from tpuflow_torch.models import TMGlow, init_lstm_state
+    from tpuflow_torch.train import make_optimizer, train_step
+
+    d = dataclasses.replace(cfg.data, n_train_traj=8, train_steps=8)
+    ds = load_dataset(d, cfg.model)
+    lf, hf = torch.from_numpy(ds.lf).to(dev), torch.from_numpy(ds.hf).to(dev)
+    model = TMGlow(cfg.model, device=dev, seed=cfg.train.seed)
+    model.data_init(hf[:, 0], lf[:, 0], init_lstm_state(cfg.model, 8, dev))
+    opt, sched = make_optimizer(model.parameters(), cfg.train.lr, cfg.train.lr_decay)
+
+    def window():
+        t0 = time.perf_counter()
+        _, m = train_step(model, opt, sched, cfg.train.grad_clip, lf, hf,
+                          init_lstm_state(cfg.model, 8, dev))
+        torch.cuda.synchronize()
+        check(math.isfinite(m["bpd"].item()), "finite bpd in the timed window")
+        return time.perf_counter() - t0
+
+    window()  # warm-up: cuDNN plans, allocator
+    times = [window() for _ in range(2)]
+    plain_s = min(times)
+
+    fwd, bwd = [], []
+    kernel, backward = coupling_fused.fused_coupling, coupling_fused._FusedCoupling.backward
+
+    def pair():
+        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def timed_kernel(*a, **k):
+        s, e = pair()
+        s.record()
+        out = kernel(*a, **k)
+        e.record()
+        fwd.append((s, e))
+        return out
+
+    def timed_backward(ctx, gy, gld):
+        s, e = pair()
+        s.record()
+        out = backward(ctx, gy, gld)
+        e.record()
+        bwd.append((s, e))
+        return out
+
+    coupling_fused.fused_coupling = timed_kernel
+    coupling_fused._FusedCoupling.backward = staticmethod(timed_backward)
+    try:
+        timed_s = window()
+    finally:
+        coupling_fused.fused_coupling = kernel
+        coupling_fused._FusedCoupling.backward = staticmethod(backward)
+    per = cfg.model.n_scales * cfg.model.n_flow_steps * d.window
+    check(len(fwd) == per and len(bwd) == per, "K2 calls of the instrumented window")
+    fwd_ms = sum(s.elapsed_time(e) for s, e in fwd)
+    bwd_ms = sum(s.elapsed_time(e) for s, e in bwd)
+    out = {"windows_per_sec": 1.0 / plain_s, "window_ms": plain_s * 1e3,
+           "instrumented_window_ms": timed_s * 1e3, "k2_fwd_ms": fwd_ms,
+           "k2_bwd_ms": bwd_ms, "k2_fwd_share": fwd_ms / (timed_s * 1e3),
+           "k2_bwd_share": bwd_ms / (timed_s * 1e3)}
+    print(f"  window (batch 8 x 8 steps, bf16): {plain_s * 1e3:.1f} ms, "
+          f"{out['windows_per_sec']:.3f} windows/s (best of {len(times)}); instrumented "
+          f"{timed_s * 1e3:.1f} ms: K2 forward {fwd_ms:.1f} ms "
+          f"({100 * out['k2_fwd_share']:.1f}%), K2 recompute backward {bwd_ms:.1f} ms "
+          f"({100 * out['k2_bwd_share']:.1f}%)", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=16,
@@ -349,20 +718,28 @@ def main() -> int:
 
     with phase("device"):
         dev = resolve_device("cuda")
-        name = torch.cuda.get_device_name(0)
+        device_name = torch.cuda.get_device_name(0)
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=60, check=True,
         ).stdout.strip().splitlines()[0]
-        print(f"  torch {torch.__version__} cuda {torch.version.cuda}; device {name}")
+        print(f"  torch {torch.__version__} cuda {torch.version.cuda}; device {device_name}")
         print(smi, flush=True)
 
     with phase("build"):
-        _build.load("coupling_fused")
+        sources = ("coupling_fused", "coupling_apply")
+        _build.build(*sources)  # one nvcc per source, started together
+        for source in sources:
+            _build.load(source)
 
-    cfg = load_case("backward-step").model
+    case = load_case("backward-step")
+    cfg = case.model
     with phase("kernel vs plain"):
         k2 = kernel_phase(cfg, dev)
+
+    with phase("K1 vs plain"):
+        k1 = k1_phase(dev)
+        k1["launches"] = k1_path_phase(dev)
 
     with phase("slice"):
         launches, steps_per_s, rollout_ms, share = slice_phase(cfg, dev, args.steps)
@@ -376,10 +753,17 @@ def main() -> int:
     with phase("reference"):
         reference_phase(cfg, dev)
 
+    with phase("train"):
+        train = train_phase(case, dev)
+        train.update(train_parity_phase(case, dev))
+        train.update(train_share_phase(case, dev))
+
     k2["launches"] = launches
+    k2["launches_by_path"] = {"rollout": launches, "train": train.pop("launches")}
+    k2["train"] = train
     print(smi)
-    print(json.dumps({"kernels": [k2]}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"kernels": [k1, k2]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": torch.cuda.device_count()}}))
     return 0
 

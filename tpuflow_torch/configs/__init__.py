@@ -1,9 +1,21 @@
 from tpuflow_torch.configs.config import (
     CaseConfig,
+    DataConfig,
     EvalConfig,
     ModelConfig,
+    TrainConfig,
     case_names,
     load_case,
+    parse_cli_overrides,
 )
 
-__all__ = ["CaseConfig", "EvalConfig", "ModelConfig", "case_names", "load_case"]
+__all__ = [
+    "CaseConfig",
+    "DataConfig",
+    "EvalConfig",
+    "ModelConfig",
+    "TrainConfig",
+    "case_names",
+    "load_case",
+    "parse_cli_overrides",
+]

@@ -1,14 +1,16 @@
-"""Typed configuration: the port's own copy of the model and rollout
-settings, read from per-case YAML presets with dotted overrides.
+"""Typed configuration: the port's own copy of the model, data, training
+and rollout settings, read from per-case YAML presets with dotted
+overrides.
 
 Counterpart of ``tpuflow/configs/config.py`` (``ModelConfig``, the
+fields of ``DataConfig`` and ``TrainConfig`` that the trainer reads, the
 rollout fields of ``EvalConfig``, ``load_case``). The port keeps its own
 copy so that it imports nothing of the JAX package.
 
-``conv_layout`` and ``flow_layout`` are accepted, but they are TPU
-layout choices with identical function: the port always computes the
-NHWC semantics. It always runs the fused coupling (the CUDA kernel on a
-GPU, its plain version on the CPU), so it has no kernel switch.
+``conv_layout``, ``flow_layout`` and ``use_pallas`` are accepted for
+parity with the JAX package's configs, but select nothing: the port
+always computes the NHWC semantics and always runs the fused coupling
+(the CUDA kernel on a GPU, its plain version on the CPU).
 """
 
 from __future__ import annotations
@@ -46,9 +48,11 @@ class ModelConfig:
     # Dtype of the networks' convolutions; the flow arithmetic itself is
     # always float32.
     compute_dtype: str = "bfloat16"
-    # TPU layout choices of the JAX package; accepted, same function.
+    # TPU layout and kernel choices of the JAX package; accepted, same
+    # function (see the module docstring).
     conv_layout: str = "hwnc"
     flow_layout: str = "nhwc"
+    use_pallas: bool = False
     # Clip standard-normal latent draws at ±z_clip (0 = off).
     z_clip: float = 4.0
 
@@ -72,6 +76,50 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class DataConfig:
+    """Dataset location and windowing: the fields of the JAX package's
+    ``DataConfig`` that the trainer reads, with its defaults."""
+
+    data_dir: str = "./datasets"
+    case: str = "backward-step"
+    # Truncated-BPTT window length (timesteps per gradient segment).
+    window: int = 8
+    # Timesteps loaded per trajectory.
+    train_steps: int = 64
+    n_train_traj: int = 32
+    n_test_traj: int = 4
+    batch_size: int = 8
+    # Procedural fixture (data/synthetic.py) instead of an archive.
+    synthetic: bool = True
+    fixture_version: int = 3
+    # Keep the whole training split on the device and gather batches
+    # there by index, when it fits device_resident_max_gb.
+    device_resident: bool = True
+    device_resident_max_gb: float = 4.0
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The fields of the JAX package's ``TrainConfig`` that the trainer
+    reads, with its defaults."""
+
+    epochs: int = 100
+    lr: float = 5e-4
+    # Continuous decay: lr * lr_decay ** (step / 100).
+    lr_decay: float = 0.995
+    weight_decay: float = 0.0
+    grad_clip: float = 100.0
+    checkpoint_dir: str = "./checkpoints"
+    checkpoint_every: int = 10
+    # Held-out NLL every N epochs into val_log.csv (0 = off).
+    eval_every: int = 0
+    # Log a metrics row every N global steps (0 = off).
+    log_every: int = 10
+    seed: int = 42
+
+
+@dataclass(frozen=True)
 class EvalConfig:
     """The rollout fields of the JAX package's ``EvalConfig``."""
 
@@ -84,6 +132,8 @@ class EvalConfig:
 class CaseConfig:
     name: str = "backward-step"
     model: ModelConfig = field(default_factory=ModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
 
     def validate(self) -> None:
@@ -172,3 +222,14 @@ def load_case(name_or_path: str, overrides: dict[str, Any] | None = None) -> Cas
         cfg = _apply_overrides(cfg, overrides)
     cfg.validate()
     return cfg
+
+
+def parse_cli_overrides(argv: list[str]) -> dict[str, Any]:
+    """Parse ``key=value`` CLI arguments into an override dict."""
+    out: dict[str, Any] = {}
+    for arg in argv:
+        if "=" not in arg:
+            raise ValueError(f"override must be key=value, got {arg!r}")
+        k, v = arg.split("=", 1)
+        out[k] = v
+    return out

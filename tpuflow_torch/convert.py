@@ -7,6 +7,10 @@ mapping is one leaf to one tensor: conv ``kernel`` leaves (HWIO) become
 Both collections cross: ``params`` and ``buffers`` (the inv-1x1's fixed
 ``p`` and ``sign_s``). Arrays arrive as numpy (e.g. through
 ``jax.device_get``); nothing here imports JAX.
+
+The port's one buffer without a Flax leaf, ActNorm's ``initialized``
+flag, is set: a Flax tree's ActNorm leaves come from ``model.init``,
+which initialises them from data.
 """
 
 from __future__ import annotations
@@ -53,6 +57,9 @@ def from_flax(variables: Mapping[str, Any], model: nn.Module) -> dict[str, torch
                 raise KeyError(f"leaf {key!r} appears in more than one collection")
             leaves[key] = arr
     target = model.state_dict()
+    for key in target:
+        if key.split(".")[-1] == "initialized" and key not in leaves:
+            leaves[key] = np.ones((), np.bool_)
     missing = sorted(set(target) - set(leaves))
     unused = sorted(set(leaves) - set(target))
     if missing or unused:

@@ -1,3 +1,3 @@
-from tpuflow_torch.eval.rollout import make_ensemble_rollout
+from tpuflow_torch.eval.rollout import make_ensemble_rollout, make_nll_eval
 
-__all__ = ["make_ensemble_rollout"]
+__all__ = ["make_ensemble_rollout", "make_nll_eval"]

@@ -1,6 +1,7 @@
-"""Autoregressive ensemble rollout.
+"""Autoregressive ensemble rollout, and the held-out NLL.
 
-Counterpart of ``make_ensemble_rollout`` in ``tpuflow/eval/rollout.py``:
+Counterpart of ``make_ensemble_rollout`` and ``make_nll_eval`` in
+``tpuflow/eval/rollout.py``. The rollout:
 for one LF trajectory, N ensemble members with their own ConvLSTM states
 and latent draws at temperature tau step autoregressively over T
 timesteps. The time loop is a Python loop; three things are hoisted out
@@ -85,3 +86,22 @@ def make_ensemble_rollout(
         return {"mean": ys[:, 0], "var": ys[:, 1]}
 
     return rollout
+
+
+def make_nll_eval(model: TMGlow) -> Callable:
+    """Build ``nll(lf_traj, hf_traj) -> (T, B)`` bits/dim for a batch of
+    held-out trajectories (B, T, ...) on the model's device: the teacher-
+    forced NLL step over time from a zero ConvLSTM state, without
+    gradients."""
+    cfg = model.cfg
+
+    @torch.no_grad()
+    def nll(lf_traj: torch.Tensor, hf_traj: torch.Tensor) -> torch.Tensor:
+        state = init_lstm_state(cfg, lf_traj.shape[0], lf_traj.device)
+        bpds = []
+        for t in range(lf_traj.shape[1]):
+            bpd, state = model.nll_step(hf_traj[:, t], lf_traj[:, t], state)
+            bpds.append(bpd)
+        return torch.stack(bpds)
+
+    return nll

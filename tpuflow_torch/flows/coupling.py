@@ -3,9 +3,12 @@
 Counterpart of ``tpuflow/flows/coupling.py``. ``DenseBlockNet`` holds the
 parameters of the JAX package's concat-free, output-fused dense block,
 one parameter per Flax leaf (``conv_in_0``, ``conv_in_1``, ``joint_j``);
-``AffineCoupling`` runs the whole coupling through
-:func:`tpuflow_torch.kernels.coupling_fused.fused_coupling`: the CUDA
-kernel on a GPU, its plain version on the CPU. Its numerics are the JAX
+``AffineCoupling`` runs the whole coupling through the fused coupling of
+:mod:`tpuflow_torch.kernels.coupling_fused`: the CUDA kernel on a GPU,
+its plain version on the CPU. Given packed weights (a rollout packs them
+once) it calls ``fused_coupling`` directly; otherwise it goes through
+``fused_coupling_autograd``, which packs the parameters inside the call
+so that gradients reach every one of them. Its numerics are the JAX
 package's fused path (see that module's docstring).
 """
 
@@ -15,7 +18,12 @@ import torch
 from torch import nn
 
 from tpuflow_torch.flows.layout import conv_nhwc, lecun_normal_
-from tpuflow_torch.kernels.coupling_fused import PackedNet, fused_coupling, pack_net
+from tpuflow_torch.kernels.coupling_fused import (
+    PackedNet,
+    fused_coupling,
+    fused_coupling_autograd,
+    pack_net,
+)
 
 
 class _Conv3x3Params(nn.Module):
@@ -72,15 +80,18 @@ class DenseBlockNet(nn.Module):
                 for j in range(layers + 1):
                     getattr(self, f"joint_{j}").weight[-out_channels:].zero_()
 
+    def joints(self) -> list[_Conv3x3Params]:
+        return [getattr(self, f"joint_{j}") for j in range(self.layers + 1)]
+
     def _convs(self):
         convs = [self.conv_in_0]
         if self.conv_in_1 is not None:
             convs.append(self.conv_in_1)
-        return convs + [getattr(self, f"joint_{j}") for j in range(self.layers + 1)]
+        return convs + self.joints()
 
     def pack(self) -> PackedNet:
         """The kernel's weight layout (net dtype kernels, f32 biases)."""
-        joints = [getattr(self, f"joint_{j}") for j in range(self.layers + 1)]
+        joints = self.joints()
         return pack_net(
             self.conv_in_0.weight, self.conv_in_0.bias,
             [j.weight for j in joints], joints[0].bias, self.dtype,
@@ -124,10 +135,16 @@ class AffineCoupling(nn.Module):
         reverse: bool = False,
         packed: PackedNet | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """x (N, H, W, C); ``packed`` (from ``net.pack()``) skips the
-        per-call weight packing."""
+        """x (N, H, W, C). With ``packed`` (from ``net.pack()``, detached)
+        the call skips the weight packing and carries no gradient;
+        without it, it is differentiable in x, cond and every parameter."""
         xa = x[..., : self.ca].float().contiguous()
         xb = x[..., self.ca :].float().contiguous()
         h0c = None if cond is None else self.net.cond_conv(cond).contiguous()
-        net = packed if packed is not None else self.net.pack()
-        return fused_coupling(xa, xb, h0c, net, reverse=reverse)
+        if packed is not None:
+            return fused_coupling(xa, xb, h0c, packed, reverse=reverse)
+        net, joints = self.net, self.net.joints()
+        return fused_coupling_autograd(
+            xa, xb, h0c, net.conv_in_0.weight, net.conv_in_0.bias,
+            [j.weight for j in joints], joints[0].bias, net.dtype, reverse=reverse,
+        )

@@ -23,13 +23,18 @@ loosely. The plain version reproduces float32 accumulation of bfloat16
 operands on the CPU by rounding inputs and weights to bfloat16 and then
 convolving in float32: products of bfloat16 values are exact in float32.
 
-Weights are packed once per model (:func:`pack_net`): conv kernels as
-(9*Cin, Cout) in the net dtype with rows ordered (dy, dx, cin), biases
-float32.
+Weights are packed (:func:`pack_net`): conv kernels as (9*Cin, Cout) in
+the net dtype with rows ordered (dy, dx, cin), biases float32. A rollout
+packs them once, detached, and calls :func:`fused_coupling` directly,
+which refuses CUDA inputs that require grad.
 
-Only the forward computation is ported: serving needs no gradient, and
-the wrapper refuses CUDA inputs that require grad. The backward comes
-with the training slice.
+Gradients: :func:`fused_coupling_autograd` takes the OIHW parameters and
+packs them inside a ``torch.autograd.Function``, the counterpart of the
+JAX package's ``custom_vjp`` ``_fused``. Its forward runs
+:func:`fused_coupling` (so every forward of training launches the
+kernel); its backward recomputes :func:`fused_coupling_reference` under
+autograd and differentiates it, as ``_fused_bwd`` differentiates
+``xla_reference`` (the JAX package has no backward kernel either).
 """
 
 from __future__ import annotations
@@ -84,15 +89,15 @@ class PackedNet(NamedTuple):
 def pack_kernel(weight_oihw: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """OIHW 3x3 kernel -> (9*Cin, Cout) in ``dtype``, rows (dy, dx, cin)."""
     cout, cin = weight_oihw.shape[:2]
-    return weight_oihw.detach().permute(2, 3, 1, 0).reshape(9 * cin, cout).to(dtype).contiguous()
+    return weight_oihw.permute(2, 3, 1, 0).reshape(9 * cin, cout).to(dtype).contiguous()
 
 
 def pack_net(win0, b0, wjs, bj0, dtype: torch.dtype) -> PackedNet:
-    """Pack OIHW kernels and biases once for :func:`fused_coupling`."""
+    """Pack OIHW kernels and biases, detached, for :func:`fused_coupling`."""
     return PackedNet(
-        pack_kernel(win0, dtype),
+        pack_kernel(win0.detach(), dtype),
         b0.detach().float().contiguous(),
-        tuple(pack_kernel(w, dtype) for w in wjs),
+        tuple(pack_kernel(w.detach(), dtype) for w in wjs),
         bj0.detach().float().contiguous(),
     )
 
@@ -176,8 +181,8 @@ def _check_cuda_args(xa, xb, h0c, net: PackedNet) -> None:
             raise ValueError(f"fused_coupling: {name} must be contiguous")
         if t.requires_grad:
             raise ValueError(
-                f"fused_coupling: {name} requires grad; the CUDA kernel has no "
-                "backward yet (run under torch.no_grad())"
+                f"fused_coupling: {name} requires grad; differentiate through "
+                "fused_coupling_autograd"
             )
     nd = net.net_dtype
     if nd not in _ENTRY:
@@ -268,3 +273,56 @@ def fused_coupling(
         raise RuntimeError(f"fused_coupling kernel launch failed: cudaError {err}")
     launches += 1
     return y, ld
+
+
+class _FusedCoupling(torch.autograd.Function):
+    """See :func:`fused_coupling_autograd`."""
+
+    @staticmethod
+    def forward(ctx, xa, xb, h0c, dtype, reverse, win0, b0, bj0, *wjs):
+        ctx.dtype, ctx.reverse = dtype, reverse
+        ctx.save_for_backward(xa, xb, h0c, win0, b0, bj0, *wjs)
+        net = pack_net(win0, b0, wjs, bj0, dtype)
+        return fused_coupling(
+            xa.detach(), xb.detach(), None if h0c is None else h0c.detach(), net,
+            reverse=reverse,
+        )
+
+    @staticmethod
+    def backward(ctx, gy, gld):
+        saved = ctx.saved_tensors
+        # needs_input_grad follows forward's arguments; drop dtype, reverse.
+        needs = ctx.needs_input_grad[:3] + ctx.needs_input_grad[5:]
+        with torch.enable_grad():
+            live = [None if a is None else a.detach().requires_grad_(n)
+                    for a, n in zip(saved, needs)]
+            xa, xb, h0c, win0, b0, bj0, *wjs = live
+            net = PackedNet(
+                pack_kernel(win0, ctx.dtype), b0.float(),
+                tuple(pack_kernel(w, ctx.dtype) for w in wjs), bj0.float(),
+            )
+            y, ld = fused_coupling_reference(xa, xb, h0c, net, reverse=ctx.reverse)
+            wrt = [a for a, n in zip(live, needs) if n and a is not None]
+            grads = iter(torch.autograd.grad((y, ld), wrt, (gy, gld), allow_unused=True))
+        out = [next(grads) if n and a is not None else None for a, n in zip(live, needs)]
+        return (*out[:3], None, None, *out[3:])
+
+
+def fused_coupling_autograd(
+    xa: torch.Tensor,
+    xb: torch.Tensor,
+    h0c: torch.Tensor | None,
+    win0: torch.Tensor,
+    b0: torch.Tensor,
+    wjs,
+    bj0: torch.Tensor,
+    dtype: torch.dtype,
+    *,
+    reverse: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fused_coupling` from the OIHW parameters (conv_in_0 kernel
+    ``win0`` and bias ``b0``, joint kernels ``wjs``, joint_0 bias ``bj0``),
+    packed in net dtype ``dtype`` inside the call; differentiable in xa,
+    xb, h0c and every parameter. The forward launches the kernel on CUDA
+    tensors; the backward differentiates the plain version."""
+    return _FusedCoupling.apply(xa, xb, h0c, dtype, reverse, win0, b0, bj0, *wjs)

@@ -3,8 +3,9 @@
 Counterpart of ``tpuflow/models/tmglow.py``: LF encoder (feature
 pyramid) -> per-scale ConvLSTM -> conditioning features (a sum of two
 1x1 convs of the encoder feature and the LSTM hidden state) ->
-multi-scale Glow. The model exposes single-timestep functions; the time
-loop lives in ``tpuflow_torch/eval/rollout.py``.
+multi-scale Glow. The model exposes single-timestep functions (the NLL
+step of training, encode / reconstruct, sampling); the time loops live in
+``tpuflow_torch/train/step.py`` and ``tpuflow_torch/eval/rollout.py``.
 
 Parameter names follow the JAX package's Flax paths (``encoder``,
 ``lstm{l}``, ``cond_projf{l}``, ``cond_projh{l}``, ``glow``), so
@@ -14,11 +15,14 @@ tensor.
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
 from tpuflow_torch.configs.config import ModelConfig
 from tpuflow_torch.device import resolve_device
+from tpuflow_torch.flows.actnorm import ActNorm
 from tpuflow_torch.flows.layout import LayoutConv, lecun_normal_
 from tpuflow_torch.models.conv_lstm import ConvLSTMCell
 from tpuflow_torch.models.glow import MultiScaleGlow
@@ -27,6 +31,7 @@ from tpuflow_torch.models.lf_encoder import LFEncoder
 LSTMState = tuple[tuple[torch.Tensor, torch.Tensor], ...]  # per scale (h, c)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_LN2 = math.log(2.0)
 
 
 def scale_shapes(cfg: ModelConfig) -> list[tuple[int, int]]:
@@ -54,8 +59,13 @@ class TMGlow(nn.Module):
 
     ``seed`` makes a random initialisation in the JAX package's scheme
     (``lecun_normal`` kernels, zero biases, zero coupling heads and prior
-    convs, random-rotation inv-1x1); load trained weights with
+    convs, random-rotation inv-1x1); :meth:`data_init` then initialises
+    the ActNorms from a real batch, as ``model.init`` does in the JAX
+    package. Load trained weights with
     ``load_state_dict(convert.from_flax(...))``.
+
+    Calling the model runs :meth:`nll_step`, as the JAX package's
+    ``__call__`` does.
     """
 
     def __init__(self, cfg: ModelConfig, *, device: str | torch.device = "cuda", seed: int = 0):
@@ -101,8 +111,6 @@ class TMGlow(nn.Module):
             generator=gen,
         )
         self.to(dev)
-        # Serving only so far: the CUDA coupling kernel has no backward yet.
-        self.requires_grad_(False)
 
     @property
     def device(self) -> torch.device:
@@ -135,6 +143,76 @@ class TMGlow(nn.Module):
             conds.append(cond)
             new_state.append(s)
         return conds, tuple(new_state)
+
+    def _condition_lf(self, lf_t: torch.Tensor, state: LSTMState):
+        return self.condition(self.encoder(lf_t), state)
+
+    def forward(self, hf_t: torch.Tensor, lf_t: torch.Tensor, state: LSTMState):
+        return self.nll_step(hf_t, lf_t, state)
+
+    def nll_step(
+        self, hf_t: torch.Tensor, lf_t: torch.Tensor, state: LSTMState
+    ) -> tuple[torch.Tensor, LSTMState]:
+        """Forward (normalizing) direction: per-example NLL in bits/dim,
+        bpd = -(logp + logdet) / (H*W*C*ln 2), the training objective.
+        hf_t (B, H, W, C), lf_t (B, h, w, C); returns (bpd (B,), state)."""
+        dims = hf_t.shape[-3] * hf_t.shape[-2] * hf_t.shape[-1]
+        conds, state = self._condition_lf(lf_t, state)
+        _, logdet, logp = self.glow(hf_t, conds)
+        return -(logp + logdet) / (dims * _LN2), state
+
+    def nll_and_sample_step(
+        self,
+        hf_t: torch.Tensor,
+        lf_t: torch.Tensor,
+        state: LSTMState,
+        temperature=1.0,
+        n_members: int = 4,
+        *,
+        generator: torch.Generator | None = None,
+        eps: list[torch.Tensor] | None = None,
+    ) -> tuple[torch.Tensor, torch.Tensor, LSTMState]:
+        """One timestep of both directions under one conditioning pass:
+        the teacher-forced NLL and ``n_members`` draws per example (the
+        conditioning repeated member-consecutively along the batch).
+        ``eps[l]`` hands in scale l's standard-normal draws, shaped
+        (B*n_members, ...). Returns (bpd (B,), members (B, n_members, H,
+        W, C), state)."""
+        dims = hf_t.shape[-3] * hf_t.shape[-2] * hf_t.shape[-1]
+        conds, state = self._condition_lf(lf_t, state)
+        _, logdet, logp = self.glow(hf_t, conds)
+        bpd = -(logp + logdet) / (dims * _LN2)
+        conds_m = [c.repeat_interleave(n_members, dim=0) for c in conds]
+        x_m, _ = self.glow.reverse(
+            conds_m, temperature=temperature, generator=generator, eps=eps
+        )
+        return bpd, x_m.reshape(hf_t.shape[0], n_members, *x_m.shape[1:]), state
+
+    def encode_step(self, hf_t: torch.Tensor, lf_t: torch.Tensor, state: LSTMState):
+        """x -> (latents, logdet, logp, state)."""
+        conds, state = self._condition_lf(lf_t, state)
+        latents, logdet, logp = self.glow(hf_t, conds)
+        return latents, logdet, logp, state
+
+    def reconstruct_step(self, latents, lf_t: torch.Tensor, state: LSTMState):
+        """latents -> (x, state): with the (lf_t, state) given to
+        :meth:`encode_step`, the exact inverse."""
+        conds, state = self._condition_lf(lf_t, state)
+        x, _ = self.glow.reverse(conds, latents=latents)
+        return x, state
+
+    def data_init(self, hf_t: torch.Tensor, lf_t: torch.Tensor, state: LSTMState) -> None:
+        """Initialise every ActNorm from one forward on a real batch, each
+        from its own input in order (the counterpart of the JAX package's
+        ``model.init`` on the first batch)."""
+        actnorms = [m for m in self.modules() if isinstance(m, ActNorm)]
+        for m in actnorms:
+            m.init_pending = True
+        with torch.no_grad():
+            self.nll_step(hf_t, lf_t, state)
+        missed = [m for m in actnorms if m.init_pending]
+        if missed:
+            raise RuntimeError(f"data_init: {len(missed)} ActNorm layers saw no input")
 
     def sample_from_feats(
         self,
