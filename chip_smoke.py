@@ -6,9 +6,13 @@
 
 Run from the root of a checkout on a machine with an NVIDIA H100. It
 builds the port's CUDA kernels from the sources in the checkout (one
-``nvcc`` per source, all started together), holds each kernel against
-its plain PyTorch version on the card, and drives the port's paths,
-each with the launch counts set to 0 just before it and read just after:
+``nvcc`` per source, all started together, ``-Xptxas -v`` printed),
+checks that the bf16 conv kernel's SASS holds tensor-core (HMMA)
+instructions, holds each kernel against its plain PyTorch version on the
+card and times it beside its bound (K2 also beside cuDNN's bf16 convs,
+a yardstick the port never calls, and at the training batch), and drives
+the port's paths, each with the launch counts set to 0 just before it
+and read just after:
 
   * the ensemble rollout of the backward-step case at full width, from a
     seeded random init, through the fused coupling K2 (phase "slice");
@@ -225,23 +229,30 @@ def kernel_phase(cfg, dev):
         check(err_rt <= ROUNDTRIP_TOL, f"K2 roundtrip at scale {l}")
 
         # Timing at the rollout's configuration: bf16 nets, reverse,
-        # conditioning batched over the members.
+        # conditioning batched over the members. Device time per launch
+        # from a CUDA graph of 20 launches (back-to-back eager calls would
+        # also hold the host's ~0.1 ms per call), the eager time beside it;
+        # the same at B = 8, the training batch.
         xa, xb, h0c, net = random_coupling(b, h, w, ca, width, growth, layers,
                                            torch.bfloat16, b, gen, dev)
-        ms = time_ms(lambda: fused_coupling(xa, xb, h0c, net, reverse=True), 20)
-        plain_ms = time_ms(lambda: fused_coupling_reference(xa, xb, h0c, net, reverse=True), 20)
-        flops = 2 * b * h * w * coupling_macs_per_pixel(ca, ca, width, growth, layers)
-        nbytes = sum(t.numel() * t.element_size()
-                     for t in (xa, xb, h0c, net.win0, net.b0, *net.wjs, net.bj0))
-        nbytes += b * h * w * 2 * ca * 4 + b * 4  # y and ld written once
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-        shapes.append(dict(scale=l, shape=[b, h, w, ca], ms=ms, plain_ms=plain_ms,
-                           bound_ms=max(t_ops, t_bytes),
-                           bound_by="operations" if t_ops >= t_bytes else "bytes",
-                           gflop=flops / 1e9, mbytes=nbytes / 1e6))
-        print(f"  scale {l} K2 {ms:.4f} ms/launch (bound {max(t_ops, t_bytes):.4f} ms, "
-              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), plain version "
-              f"{plain_ms:.4f} ms (not a yardstick)", flush=True)
+        ms = time_graph_ms(lambda: fused_coupling(xa, xb, h0c, net, reverse=True), 20)
+        eager_ms = time_ms(lambda: fused_coupling(xa, xb, h0c, net, reverse=True), 20)
+        plain_ms = time_graph_ms(
+            lambda: fused_coupling_reference(xa, xb, h0c, net, reverse=True), 20)
+        chain_ms = cudnn_chain_ms(b, h, w, ca, width, growth, layers, dev)
+        bound_ms, bound_by, flops, nbytes = k2_bound(xa, xb, h0c, net, growth, layers)
+        x8 = random_coupling(8, h, w, ca, width, growth, layers, torch.bfloat16, 8, gen, dev)
+        ms_b8 = time_graph_ms(lambda: fused_coupling(*x8, reverse=True), 20)
+        bound_b8 = k2_bound(*x8, growth, layers)[0]
+        shapes.append(dict(scale=l, shape=[b, h, w, ca], ms=ms, eager_ms=eager_ms,
+                           plain_ms=plain_ms, cudnn_chain_ms=chain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, gflop=flops / 1e9, mbytes=nbytes / 1e6,
+                           ms_b8=ms_b8, bound_ms_b8=bound_b8))
+        print(f"  scale {l} K2 {ms:.5f} ms/launch in a graph, {eager_ms:.5f} eager (bound "
+              f"{bound_ms:.5f} ms by {bound_by}, {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB, "
+              f"{100 * bound_ms / ms:.1f}% of the bound reached); B = 8: {ms_b8:.5f} ms (bound "
+              f"{bound_b8:.5f}); plain version {plain_ms:.4f} ms (not a yardstick); cuDNN's "
+              f"five bf16 convs {chain_ms:.5f} ms (a yardstick)", flush=True)
     mean = lambda k: sum(s[k] for s in shapes) / len(shapes)  # noqa: E731
     return {
         "name": "fused_coupling",
@@ -256,23 +267,68 @@ def kernel_phase(cfg, dev):
         "bound_ms": mean("bound_ms"),
         "bound_by": "operations" if all(s["bound_by"] == "operations" for s in shapes)
         else "bytes",
+        # No one PyTorch call computes the coupling (convs, growth sums,
+        # affine and logdet); cudnn_chain_ms in each shape times its convs.
         "library_ms": None,
         "shapes": shapes,
     }
 
 
-def perturb_(model, seed: int, scale: float = 0.004) -> None:
-    """Seeded noise on every parameter, so the zero-init coupling heads
-    and priors of the random init compute something. The scale is kept
-    small: an untrained reverse coupling stack amplifies its input, and
-    at full width noise of 0.01 already overflows a 64-member rollout
-    to inf (measured on the CPU)."""
-    import torch
+def k2_bound(xa, xb, h0c, net, growth, layers):
+    """(bound ms, what bounds it, FLOPs, bytes) of one K2 launch on these
+    inputs: each input read once, y and ld written once, against the
+    tensor cores' bf16 rate and the memory rate."""
+    b, h, w, ca = xa.shape
+    flops = 2 * b * h * w * coupling_macs_per_pixel(ca, xb.shape[-1], net.width, growth, layers)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (xa, xb, h0c, net.win0, net.b0, *net.wjs, net.bj0) if t is not None)
+    nbytes += b * h * w * (ca + xb.shape[-1]) * 4 + b * 4  # y and ld
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", flops, nbytes
 
-    gen = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for p in model.parameters():
-            p.add_((scale * torch.randn(p.shape, generator=gen)).to(p.device))
+
+def cudnn_chain_ms(b, h, w, ca, width, growth, layers, dev) -> float:
+    """Yardstick, never called by the port: the coupling's five 3x3 convs
+    (conv_in, joint_0..L) as cuDNN bf16 ``F.conv2d`` calls in
+    channels_last, at one member batch, device time from a CUDA graph."""
+    import torch
+    import torch.nn.functional as F
+
+    total0 = layers * growth + 2 * ca
+    io = [(ca, width)] + [(width if j == 0 else growth, total0 - j * growth)
+                          for j in range(layers + 1)]
+    cl = torch.channels_last
+    xs = [torch.randn(b, cin, h, w, device=dev, dtype=torch.bfloat16).to(memory_format=cl)
+          for cin, _ in io]
+    ws = [(0.1 * torch.randn(cout, cin, 3, 3, device=dev, dtype=torch.bfloat16))
+          .to(memory_format=cl) for cin, cout in io]
+
+    def chain():
+        for x, wt in zip(xs, ws):
+            F.conv2d(x, wt, padding=1)
+
+    return time_graph_ms(chain, 20)
+
+
+def hmma_count(lib) -> dict[str, int] | None:
+    """HMMA (tensor-core) instructions in each instantiation of the bf16
+    conv kernel's SASS, by ``cuobjdump -sass``; None without cuobjdump."""
+    import shutil
+
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not pathlib.Path(exe).exists():
+        return None
+    sass = subprocess.run([exe, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, fn = {}, ""
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            if "conv3x3_mma_kernel" in fn:
+                counts[fn] = 0
+        elif fn in counts and "HMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def slice_phase(cfg, dev, steps: int):
@@ -281,7 +337,7 @@ def slice_phase(cfg, dev, steps: int):
 
     from tpuflow_torch.eval import make_ensemble_rollout
     from tpuflow_torch.kernels import coupling_fused
-    from tpuflow_torch.models import TMGlow
+    from tpuflow_torch.models import TMGlow, perturb_
 
     model = TMGlow(cfg, device=dev, seed=0)
     perturb_(model, 1)
@@ -357,7 +413,7 @@ def reference_phase(cfg, dev):
     import torch
 
     from tpuflow_torch.eval import make_ensemble_rollout
-    from tpuflow_torch.models import TMGlow
+    from tpuflow_torch.models import TMGlow, perturb_
 
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     cpu = TMGlow(cfg32, device="cpu", seed=0)
@@ -577,7 +633,7 @@ def train_parity_phase(cfg, dev) -> dict:
 
     from tpuflow_torch.data import load_dataset
     from tpuflow_torch.kernels import coupling_fused
-    from tpuflow_torch.models import TMGlow, init_lstm_state
+    from tpuflow_torch.models import TMGlow, init_lstm_state, perturb_
     from tpuflow_torch.train import window_bpd_fn
 
     mcfg = dataclasses.replace(cfg.model, compute_dtype="float32")
@@ -728,9 +784,19 @@ def main() -> int:
 
     with phase("build"):
         sources = ("coupling_fused", "coupling_apply")
-        _build.build(*sources)  # one nvcc per source, started together
+        _build.build(*sources)  # one nvcc per source, started together; prints -Xptxas -v
         for source in sources:
             _build.load(source)
+        # Evidence that the bf16 path runs on the tensor cores.
+        hmma = hmma_count(_build._paths("coupling_fused")[1])
+        if hmma is None:
+            print("  HMMA in the bf16 conv kernel's SASS: not checked (no cuobjdump); the "
+                  f"source uses mma.sync ({K2_SOURCE})", flush=True)
+        else:
+            for fn, n in hmma.items():
+                print(f"  HMMA instructions in {fn}: {n}", flush=True)
+            check(len(hmma) == 3 and all(hmma.values()),
+                  "every instantiation of the bf16 conv kernel holds HMMA instructions")
 
     case = load_case("backward-step")
     cfg = case.model

@@ -91,6 +91,76 @@ def test_cuda_kernel_matches_plain_version(cuda_device, dtype, h0c_batch, revers
     torch.testing.assert_close(ld, ld_ref, atol=tol_ld, rtol=1e-5)
 
 
+def _lecun_case(device, dtype, b, h, w, ca, cb, width, growth, layers, h0c_batch, seed):
+    """Inputs and packed weights at lecun scale (kernels / sqrt(9 cin), the
+    head columns x 0.1), so the features stay O(1) at any width."""
+    rng = np.random.default_rng(seed)
+    total0 = layers * growth + 2 * ca
+
+    def lecun(cout, cin):
+        wt = _np(rng, (cout, cin, 3, 3), 1.0 / (9 * cin) ** 0.5)
+        wt[-2 * ca:] *= 0.1
+        return wt.to(device)
+
+    net = pack_net(lecun(width, cb), _np(rng, (width,), 0.1).to(device),
+                   [lecun(total0 - j * growth, width if j == 0 else growth)
+                    for j in range(layers + 1)],
+                   _np(rng, (total0,), 0.1).to(device), dtype)
+    xa, xb = _np(rng, (b, h, w, ca)).to(device), _np(rng, (b, h, w, cb)).to(device)
+    h0c = None
+    if h0c_batch is not None:
+        h0c = _np(rng, (b if h0c_batch == "B" else 1, h, w, width), 0.5).to(device, dtype)
+    return xa, xb, h0c, net
+
+
+# (b, h, w, ca, cb, width, growth, layers): the bf16 tensor-core kernel's
+# edges. ca = 1 with cb = 2 (the C = 3 probe); growth 8 / width 16; the
+# coupling_width=128 preset at scale 1; W = 128 (the widest row); H = 7,
+# W = 24 (a partial last tile, 120-pixel tiles that are not a multiple of a
+# warp's 64); B = 1; scale 2 at B = 64 (tiles of half a member); one
+# layer-free net (L = 0: joint_0 is the last layer); width 12 and growth 5
+# (feature rows copied in part-filled 16-byte chunks, the relu boundary
+# inside a fragment's column pair, running sums shifted by an odd number
+# of columns, h0c read without its tile).
+EDGE_SHAPES = [
+    (2, 8, 16, 1, 2, 16, 8, 3),
+    (3, 8, 16, 6, 6, 16, 8, 3),
+    (4, 16, 32, 12, 12, 128, 32, 3),
+    (2, 4, 128, 6, 6, 64, 32, 3),
+    (3, 7, 24, 5, 5, 64, 32, 3),
+    (1, 32, 64, 6, 6, 64, 32, 3),
+    (64, 8, 16, 24, 24, 64, 32, 3),
+    (2, 8, 16, 6, 6, 16, 8, 0),
+    (2, 8, 16, 3, 3, 12, 5, 2),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("h0c_batch", [None, 1, "B"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_cuda_kernel_edge_shapes(cuda_device, shape, dtype, h0c_batch, reverse):
+    """Both kernels against the plain version at the edges of the bf16
+    kernel's tile plan, and the logdet (and y) bit-identical over two
+    launches (fixed summation order, no atomics)."""
+    b, h, w, ca, cb, width, growth, layers = shape
+    if shape == EDGE_SHAPES[6]:
+        assert tk.tile_plan(b, h, w, width, layers * growth + 2 * ca).rows * 2 == h
+    tol_y, tol_ld = _TOL[dtype]
+    xa, xb, h0c, net = _lecun_case(cuda_device, _DT[dtype], *shape, h0c_batch, seed=sum(shape))
+    before = tk.launches
+    y, ld = fused_coupling(xa, xb, h0c, net, reverse=reverse)
+    y2, ld2 = fused_coupling(xa, xb, h0c, net, reverse=reverse)
+    torch.cuda.synchronize()
+    assert tk.launches == before + 2
+    assert torch.equal(ld, ld2) and torch.equal(y, y2)
+    y_ref, ld_ref = fused_coupling_reference(xa, xb, h0c, net, reverse=reverse)
+    assert y.shape == (b, h, w, ca + cb) and torch.isfinite(y).all()
+    torch.testing.assert_close(y, y_ref, atol=tol_y, rtol=1e-5)
+    torch.testing.assert_close(ld, ld_ref, atol=tol_ld, rtol=1e-5)
+
+
 @pytest.mark.cuda
 def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     xa, xb, h0c, net = _case(torch.float32, cuda_device)

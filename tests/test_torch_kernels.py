@@ -145,3 +145,118 @@ def test_roundtrip_through_plain_version():
         y[..., :ca].contiguous(), y[..., ca:].contiguous(), h0c, net, reverse=True)
     np.testing.assert_allclose(x_rec[..., :ca].numpy(), c["xa"], atol=1e-5)
     np.testing.assert_allclose(ld_f.numpy(), -ld_r.numpy(), atol=1e-4, rtol=1e-6)
+
+
+def _oihw_case(seed=0, b=2, h=8, w=16, ca=3, cb=3):
+    """OIHW kernels with Cout not a multiple of 8 (so the packing pads)."""
+    total0 = LAYERS * GROWTH + 2 * ca
+    c = _case(b=b, h=h, w=w, ca=ca, cb=cb, h0c_batch=1, seed=seed)
+    c["win0_oihw"] = _np(seed + 20, (WIDTH, cb, 3, 3), 0.2)
+    c["wjs_oihw"] = [_np(seed + 30 + j, (total0 - j * GROWTH, WIDTH if j == 0 else GROWTH, 3, 3),
+                         0.1) for j in range(LAYERS + 1)]
+    # The JAX package's packing: HWIO reshaped to (9*Cin, Cout), no pad.
+    c["win0"] = c["win0_oihw"].transpose(2, 3, 1, 0).reshape(9 * cb, WIDTH)
+    c["wjs"] = [wj.transpose(2, 3, 1, 0).reshape(-1, wj.shape[0]) for wj in c["wjs_oihw"]]
+    return c
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_padded_pack_net_matches_xla_reference(dtype, reverse):
+    """pack_net's padded layout through the plain version against the JAX
+    package's xla_reference on the same OIHW weights (joint Couts 30, 22,
+    14, 6: every one padded)."""
+    jdt, tdt, tol_y, tol_ld = _DT[dtype]
+    c = _oihw_case()
+    net = tk.pack_net(torch.tensor(c["win0_oihw"]), torch.tensor(c["b0"]),
+                      [torch.tensor(w) for w in c["wjs_oihw"]], torch.tensor(c["bj0"]), tdt)
+    assert [wj.shape[1] for wj in net.wjs] == [32, 24, 16, 8]
+    assert net.width == WIDTH and net.growth == GROWTH and net.couts == (30, 22, 14, 6)
+    y_j, ld_j = cfk.xla_reference(*_jax_args(c, jdt), _jax_cfg(jdt, reverse))
+    xa, xb, h0c = _torch_inputs(c, tdt)
+    y_t, ld_t = fused_coupling_reference(xa, xb, h0c, net, reverse=reverse)
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), atol=tol_y, rtol=1e-5)
+    np.testing.assert_allclose(ld_t.numpy(), np.asarray(ld_j), atol=tol_ld, rtol=1e-5)
+
+
+@pytest.mark.parametrize("cout,cin", [(1, 1), (12, 32), (64, 6), (108, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pack_kernel_pads_with_zeros_and_unpacks(cout, cin, dtype):
+    w = torch.from_numpy(_np(cout + cin, (cout, cin, 3, 3)))
+    packed = tk.pack_kernel(w, dtype)
+    n_pad = -(-cout // 8) * 8
+    assert packed.shape == (9 * cin, n_pad) and packed.dtype == dtype and packed.is_contiguous()
+    assert not packed[:, cout:].any()
+    assert torch.equal(tk.unpack_kernel(packed, cout), w.to(dtype))
+    # Rows are (dy, dx, cin), as the JAX package's HWIO reshape.
+    np.testing.assert_array_equal(packed[:, :cout].float().numpy(),
+                                  w.to(dtype).float().numpy().transpose(2, 3, 1, 0)
+                                  .reshape(9 * cin, cout))
+
+
+_SCALES = [(32, 64, 6), (16, 32, 12), (8, 16, 24)]  # backward-step: (H, W, ca) per scale
+
+
+@pytest.mark.parametrize("width", [64, 128])
+@pytest.mark.parametrize("b", [64, 8])
+@pytest.mark.parametrize("scale", [0, 1, 2])
+def test_tile_plan_fits_the_card(scale, b, width):
+    """The bf16 kernel's plan of every layer of a backward-step coupling
+    (growth 32, L = 3): within 227 KB of shared memory and 16 warps, a
+    grid that covers the image, conflict-free strides, zero-padded K and
+    N that cover cin and cout, weight buffers that fit; at B = 64 the
+    tiles named in the plan's notes (scale 0: 4 rows, 512 tiles; scale 2:
+    half a member, 128 tiles)."""
+    h, w, ca = _SCALES[scale]
+    growth, layers = 32, 3
+    plans = tk.coupling_plans(b, h, w, ca, ca, width, growth, layers)
+    total0 = layers * growth + 2 * ca
+    layer_io = [(ca, width)] + [(width if j == 0 else growth, total0 - j * growth)
+                                for j in range(layers + 1)]
+    assert len(plans) == len(layer_io) == layers + 2
+    for (cin, cout), p in zip(layer_io, plans):
+        assert p.smem <= 232448 and 32 <= p.threads <= 512
+        assert p.tiles * p.rows >= h > (p.tiles - 1) * p.rows and p.rows * w <= 256
+        assert p.warps_m * 64 >= p.rows * w and p.warps_n * 32 >= p.n_pad >= cout
+        assert p.cin_pad % 16 == 0 and p.cin_pad >= cin and p.n_pad % 8 == 0
+        assert p.n16 % 16 == 0 and p.n16 >= p.n_pad
+        for stride in (p.a_stride, p.b_stride):  # odd multiples of 16 bytes
+            assert (2 * stride) % 32 == 16
+        assert p.a_stride >= p.cin_pad and p.b_stride >= p.n16
+        assert p.b_off % 16 == 0 and p.b_off >= (p.rows + 2) * (w + 2) * p.a_stride * 2
+        assert (p.taps, p.nbuf) in ((9, 1), (1, 3))
+        # Resident weights only within the block's share of an SM.
+        assert p.smem <= 113 * 1024 or p.threads > 256 or (p.taps, p.nbuf) != (9, 1)
+        assert p.x_off >= p.b_off + p.nbuf * p.taps * p.cin_pad * p.b_stride * 2
+        assert p.b_off % 16 == p.x_off % 16 == p.t_off % 16 == p.red_off % 16 == 0
+        assert p.smem >= p.red_off >= p.t_off >= p.x_off
+    # Scratch strides: each layer writes its relu features with the pixel
+    # stride the next one reads them with; the running sums' rows start on
+    # 16 bytes. The shared tiles' rows hold every column, start on 16
+    # bytes and are no multiple of 16 values (bank rounds of the stage).
+    for p, nxt in zip(plans, plans[1:]):
+        assert p.ld_out == nxt.cin_pad
+    assert plans[-1].ld_out == 0
+    for p, (cin, cout) in zip(plans, layer_io):
+        assert p.t_stride % 4 == 0 and p.t_stride % 16 != 0 and cout <= p.t_stride < cout + 12
+        assert p.red_off >= p.rows * w * p.t_stride * 4  # the f32 output stage, from 0
+        if p is not plans[0]:
+            assert p.ld_acc == plans[1].ld_acc >= total0 and p.ld_acc % 4 == 0
+            assert p is plans[-1] or -(-(cout - growth) // 4) * 4 <= p.ld_acc  # 16-byte stores
+    conv_in, *joints = plans
+    assert conv_in.t_off - conv_in.x_off >= (conv_in.rows + 2) * w * ca * 4  # f32 rows
+    assert conv_in.red_off - conv_in.t_off >= conv_in.rows * w * conv_in.t_stride * 2  # h0c
+    assert joints[0].t_off == joints[0].x_off  # joint_0 reads no running sums
+    for p, (cin, cout) in zip(joints[1:], layer_io[2:]):
+        assert p.red_off - p.t_off >= p.rows * w * p.t_stride * 4
+    assert joints[-1].smem >= joints[-1].red_off + 64
+    assert len({(p.rows, p.tiles) for p in plans}) == 1  # one tiling per coupling
+    if b == 64:
+        assert (plans[0].rows, b * plans[0].tiles) == [(4, 512), (4, 256), (4, 128)][scale]
+
+
+def test_tile_plan_refuses_what_does_not_fit():
+    with pytest.raises(ValueError, match="W <= 128"):
+        tk.tile_plan(1, 4, 129, 16, 16)
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.tile_plan(1, 4, 128, 512, 512)

@@ -4,14 +4,16 @@ A source ``csrc/<name>.cu`` is compiled, on first use in a process, into a
 shared library with a plain C interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/tpuflow_torch/lib<name>-<hash>.so <src>
+         -Xcompiler -fPIC -Xptxas -v -o build/tpuflow_torch/lib<name>-<hash>.so <src>
 
 The library's name carries a hash of the source and the flags, so a
 changed source is rebuilt and an unchanged one is reused. No PyTorch
 headers are included, so a build takes seconds. ``-use_fast_math`` is
 left out on purpose: it would break parity with the plain versions.
 A failed build raises; there is no fallback. :func:`build` compiles
-several sources at once, one ``nvcc`` process each.
+several sources at once, one ``nvcc`` process each, and prints what
+``nvcc`` said: with ``-Xptxas -v``, each kernel's registers, shared
+memory and spills.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "tpuflow_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -58,7 +60,9 @@ def _paths(name: str) -> tuple[pathlib.Path, pathlib.Path]:
 
 def build(*names: str) -> None:
     """Compile every library among ``names`` that is not built yet: one
-    ``nvcc`` per source, all started together. Raises on any failure."""
+    ``nvcc`` per source, all started together. Prints each build's output
+    (``-Xptxas -v``: registers, shared memory, spills per kernel); raises
+    on any failure."""
     pending = []
     for name in names:
         src, out = _paths(name)
@@ -77,6 +81,7 @@ def build(*names: str) -> None:
             failures.append(f"{' '.join(cmd)}\n{log}")
         else:
             os.replace(tmp, out)
+            print(f"nvcc {out.name}:\n{log.rstrip()}", flush=True)
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
 

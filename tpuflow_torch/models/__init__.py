@@ -1,7 +1,7 @@
 from tpuflow_torch.models.conv_lstm import ConvLSTMCell
 from tpuflow_torch.models.glow import GlowStep, MultiScaleGlow
 from tpuflow_torch.models.lf_encoder import LFEncoder
-from tpuflow_torch.models.tmglow import TMGlow, init_lstm_state, scale_shapes
+from tpuflow_torch.models.tmglow import TMGlow, init_lstm_state, perturb_, scale_shapes
 
 __all__ = [
     "ConvLSTMCell",
@@ -10,5 +10,6 @@ __all__ = [
     "MultiScaleGlow",
     "TMGlow",
     "init_lstm_state",
+    "perturb_",
     "scale_shapes",
 ]

@@ -53,6 +53,18 @@ def init_lstm_state(
     )
 
 
+def perturb_(model: nn.Module, seed: int, scale: float = 0.004) -> None:
+    """Seeded noise on every parameter, so the zero-init coupling heads
+    and priors of a random init compute something. The scale is kept
+    small: an untrained reverse coupling stack amplifies its input, and
+    at full width noise of 0.01 already overflows a 64-member rollout
+    to inf (measured on the CPU)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_((scale * torch.randn(p.shape, generator=gen)).to(p.device))
+
+
 class TMGlow(nn.Module):
     """Single-timestep TM-Glow on ``device`` (default ``"cuda"``; raises
     where there is no GPU unless ``device="cpu"`` is given).
