@@ -8,9 +8,10 @@ Run from the root of a checkout on a machine with an NVIDIA H100. It
 builds the port's CUDA kernels from the sources in the checkout (one
 ``nvcc`` per source, all started together, ``-Xptxas -v`` printed),
 checks that the bf16 conv kernel's SASS holds tensor-core (HMMA)
-instructions, holds each kernel against its plain PyTorch version on the
-card and times it beside its bound (K2 also beside cuDNN's bf16 convs,
-a yardstick the port never calls, and at the training batch), and drives
+instructions and K1's 128-bit global loads, holds each kernel against
+its plain PyTorch version on the card and times it beside its bound (K2
+also beside cuDNN's bf16 convs, a yardstick the port never calls, and at
+the training batch; K1 with the L2 cold and warm), and drives
 the port's paths, each with the launch counts set to 0 just before it
 and read just after:
 
@@ -38,10 +39,12 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import json
 import math
 import pathlib
 import subprocess
+import re
 import sys
 import time
 
@@ -59,6 +62,10 @@ K1_SHAPES = [(64, 32, 64, 6), (64, 16, 32, 12), (64, 8, 16, 24)]
 # Operations per element of K1: shift, min, abs, negate, exp, log1p,
 # subtract, exp, add, multiply, and the logdet add.
 K1_OPS_PER_ELEMENT = 11
+# K1's cold timing rotates its launches through input sets this many bytes
+# apart, twice the H100's 50 MB L2: a flagship call (4.2-16.8 MB) fits in
+# the L2, so repeated launches on one set would read from it, not HBM.
+L2_COLD_BYTES = 100e6
 K2_SOURCE = "tpuflow_torch/kernels/csrc/coupling_fused.cu"
 K2_REPLACES = "tpuflow/kernels/coupling_fused.py:119"
 # Kernel vs plain version: y max abs error, logdet error relative to
@@ -154,6 +161,17 @@ def time_graph_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_cold_ms(fn, sets, reps: int) -> float:
+    """Device time per call of ``fn`` with the L2 cold: as
+    :func:`time_graph_ms`, but the calls rotate through the argument tuples
+    ``sets`` and each keeps its own outputs, so a call finds its inputs
+    last touched ``len(sets)`` calls ago. ``reps`` is rounded up to a
+    multiple of ``len(sets)``, so that holds across replays too."""
+    calls, outs = itertools.cycle(sets), []
+    reps = -(-reps // len(sets)) * len(sets)
+    return time_graph_ms(lambda: outs.append(fn(*next(calls))), reps)
 
 
 def random_coupling(b, h, w, ca, width, growth, layers, dtype, h0c_batch, gen, dev):
@@ -310,9 +328,10 @@ def cudnn_chain_ms(b, h, w, ca, width, growth, layers, dev) -> float:
     return time_graph_ms(chain, 20)
 
 
-def hmma_count(lib) -> dict[str, int] | None:
-    """HMMA (tensor-core) instructions in each instantiation of the bf16
-    conv kernel's SASS, by ``cuobjdump -sass``; None without cuobjdump."""
+def sass_count(lib, kernel: str, opcode: str) -> dict[str, int] | None:
+    """Instructions whose text matches the regex ``opcode`` in each
+    function of ``lib`` whose name holds ``kernel`` (each instantiation),
+    by ``cuobjdump -sass``; None without cuobjdump."""
     import shutil
 
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -324,9 +343,9 @@ def hmma_count(lib) -> dict[str, int] | None:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            if "conv3x3_mma_kernel" in fn:
+            if kernel in fn:
                 counts[fn] = 0
-        elif fn in counts and "HMMA" in line:
+        elif fn in counts and re.search(opcode, line):
             counts[fn] += 1
     return counts
 
@@ -492,24 +511,37 @@ def k1_phase(dev):
                   f"err {err_g:.3e} (tol {K1_TOL_GRAD} + {K1_TOL_GRAD} |g|)", flush=True)
             check(ok_g, f"K1 gradients at {shape} reverse={reverse}")
 
-        # Device time (graph replay of 100 launches) and, for the record,
-        # back-to-back eager calls, which the host's cost per call bounds.
-        ms = time_graph_ms(lambda: coupling_apply(x, raw, t), 100)
-        plain_ms = time_graph_ms(lambda: coupling_apply_reference(x, raw, t), 100)
-        eager_ms = time_ms(lambda: coupling_apply(x, raw, t), 200)
-        plain_eager_ms = time_ms(lambda: coupling_apply_reference(x, raw, t), 200)
+        # Device time per launch from a CUDA graph of ~100 launches: with
+        # the L2 cold (the launches rotate through input sets 100 MB
+        # apart), the kernel's and the plain version's; with the L2 warm
+        # (every launch on one set); and, for the record, back-to-back
+        # eager calls, which the host's cost per call bounds.
         b, d = shape[0], math.prod(shape[1:])
         nbytes = 16 * b * d + 4 * b  # x, raw, t read once; y, ld written once
+        sets = [(x, raw, t)] + [tuple(torch.randn_like(a) for a in (x, raw, t))
+                                for _ in range(math.ceil(L2_COLD_BYTES / nbytes))]
+        ms = time_cold_ms(coupling_apply, sets, 100)
+        plain_ms = time_cold_ms(coupling_apply_reference, sets, 100)
+        # Yardstick, never called by the port: PyTorch's elementwise kernel
+        # moving the same bytes (x + raw * t: three reads, one write), cold.
+        addcmul_ms = time_cold_ms(torch.addcmul, sets, 100)
+        ms_l2_warm = time_graph_ms(lambda: coupling_apply(x, raw, t), 100)
+        eager_ms = time_ms(lambda: coupling_apply(x, raw, t), 200)
+        plain_eager_ms = time_ms(lambda: coupling_apply_reference(x, raw, t), 200)
         t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
         t_ops = K1_OPS_PER_ELEMENT * b * d / PEAK_F32_FLOPS * 1e3
-        shapes.append(dict(shape=list(shape), ms=ms, plain_ms=plain_ms,
-                           bound_ms=max(t_ops, t_bytes),
+        bound_ms = max(t_ops, t_bytes)
+        shapes.append(dict(shape=list(shape), ms=ms, ms_l2_warm=ms_l2_warm, plain_ms=plain_ms,
+                           addcmul_ms=addcmul_ms, bound_ms=bound_ms,
                            bound_by="bytes" if t_bytes >= t_ops else "operations",
                            gbytes_per_s=nbytes / ms / 1e6, eager_ms=eager_ms,
                            plain_eager_ms=plain_eager_ms))
-        print(f"  {shape} K1 {ms:.5f} ms/launch in a graph (bound {max(t_ops, t_bytes):.5f} "
-              f"ms, {nbytes / ms / 1e6:.0f} GB/s), plain version {plain_ms:.5f} ms; eager "
-              f"calls {eager_ms:.5f} / plain {plain_eager_ms:.5f} ms", flush=True)
+        print(f"  {shape} K1 {ms:.5f} ms/launch with the L2 cold ({len(sets)} input sets; "
+              f"bound {bound_ms:.5f} ms, {100 * bound_ms / ms:.1f}% of it reached, "
+              f"{nbytes / ms / 1e6:.0f} GB/s), {ms_l2_warm:.5f} ms with the L2 warm; plain "
+              f"version {plain_ms:.5f} ms cold; torch.addcmul on the same bytes {addcmul_ms:.5f} "
+              f"ms cold (a yardstick); eager calls {eager_ms:.5f} / plain {plain_eager_ms:.5f} ms",
+              flush=True)
     mean = lambda k: sum(s[k] for s in shapes) / len(shapes)  # noqa: E731
     return {
         "name": "coupling_apply",
@@ -518,6 +550,7 @@ def k1_phase(dev):
         "replaces": K1_REPLACES,
         "max_abs_err": worst,
         "ms": mean("ms"),
+        "ms_l2_warm": mean("ms_l2_warm"),
         "plain_ms": mean("plain_ms"),
         "bound_ms": mean("bound_ms"),
         "bound_by": "bytes" if all(s["bound_by"] == "bytes" for s in shapes) else "operations",
@@ -788,7 +821,7 @@ def main() -> int:
         for source in sources:
             _build.load(source)
         # Evidence that the bf16 path runs on the tensor cores.
-        hmma = hmma_count(_build._paths("coupling_fused")[1])
+        hmma = sass_count(_build._paths("coupling_fused")[1], "conv3x3_mma_kernel", "HMMA")
         if hmma is None:
             print("  HMMA in the bf16 conv kernel's SASS: not checked (no cuobjdump); the "
                   f"source uses mma.sync ({K2_SOURCE})", flush=True)
@@ -797,6 +830,18 @@ def main() -> int:
                 print(f"  HMMA instructions in {fn}: {n}", flush=True)
             check(len(hmma) == 3 and all(hmma.values()),
                   "every instantiation of the bf16 conv kernel holds HMMA instructions")
+        # Evidence that K1 streams 16-byte vectors: 128-bit global loads
+        # (LDG.E.128, with any cache-hint suffix) in both instantiations.
+        ldg = sass_count(_build._paths("coupling_apply")[1], "coupling_apply_kernel",
+                         r"\bLDG\.E(\.\w+)*\.128\b")
+        if ldg is None:
+            print("  128-bit loads in K1's SASS: not checked (no cuobjdump); the source uses "
+                  f"__ldcs on float4 ({K1_SOURCE})", flush=True)
+        else:
+            for fn, n in ldg.items():
+                print(f"  128-bit global loads (LDG.E.128) in {fn}: {n}", flush=True)
+            check(len(ldg) == 2 and all(ldg.values()),
+                  "both instantiations of K1 hold 128-bit global loads")
 
     case = load_case("backward-step")
     cfg = case.model

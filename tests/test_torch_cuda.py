@@ -287,7 +287,13 @@ def test_cuda_trainer_launches_k2_and_resumes(cuda_device, tmp_path):
     assert t2.run()["epoch"] == 2
 
 
-K1_SHAPES = [(2, 4, 4, 4), (3, 5, 7, 3), (2, 2, 8, 16, 2), (64, 32, 64, 6)]
+# The JAX package's test shapes, the flagship shape; D % 4 of 1, 2 and 3
+# (rows that start off a 16-byte boundary: scalar head and tail), D = 1,
+# one row of 2^19 (the full cluster) and 70,000 rows (past the 65,535 a
+# grid's y may hold).
+K1_SHAPES = [(2, 4, 4, 4), (3, 5, 7, 3), (2, 2, 8, 16, 2), (64, 32, 64, 6),
+             (3, 3, 3, 1), (2, 3, 5, 2), (2, 1, 1, 7), (1, 1, 1, 1), (1, 256, 512, 4),
+             (70000, 1, 1, 4)]
 
 
 def _k1_inputs(shape, device, seed=0):
@@ -334,3 +340,38 @@ def test_cuda_k1_gradients_roundtrip_and_hwnc(cuda_device, reverse):
     y_ref, ld_ref = coupling_apply_reference(x, raw, t, reverse=reverse, layout="hwnc")
     torch.testing.assert_close(y, y_ref, atol=1e-6, rtol=1e-6)
     torch.testing.assert_close(ld, ld_ref, atol=1e-5, rtol=1e-6)
+
+
+def _at_offset(a, offset):
+    """A copy of ``a`` in a view that starts ``offset`` floats into its
+    storage, off a 16-byte boundary."""
+    view = torch.empty(a.numel() + offset, device=a.device)[offset:].view(a.shape)
+    view.copy_(a)
+    assert view.data_ptr() % 16 != 0
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("case", ["x_offset", "raw_t_offset", "hwnc", "hwnc_x_offset"])
+def test_cuda_k1_storage_offsets_and_hwnc(cuda_device, case, reverse):
+    """Inputs that start off a 16-byte boundary (storage-offset views) and
+    the hwnc layout: each call launches the kernel once, matches the plain
+    version and is bit-identical over two launches."""
+    layout = "hwnc" if case.startswith("hwnc") else "nhwc"
+    x, raw, t = _k1_inputs((4, 6, 3, 5) if layout == "hwnc" else (3, 5, 7, 3), cuda_device, 4)
+    if case in ("x_offset", "hwnc_x_offset"):
+        x = _at_offset(x, 1)
+    if case == "raw_t_offset":
+        raw, t = _at_offset(raw, 2), _at_offset(t, 3)
+    outs = []
+    for _ in range(2):
+        before = ka.launches
+        outs.append(coupling_apply(x, raw, t, reverse=reverse, layout=layout))
+        torch.cuda.synchronize()
+        assert ka.launches == before + 1
+    y_ref, ld_ref = coupling_apply_reference(x, raw, t, reverse=reverse, layout=layout)
+    (y, ld), (y2, ld2) = outs
+    torch.testing.assert_close(y, y_ref, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(ld, ld_ref, atol=1e-5, rtol=1e-6)
+    assert torch.equal(y, y2) and torch.equal(ld, ld2)

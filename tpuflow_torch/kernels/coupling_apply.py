@@ -13,6 +13,9 @@ gradient). With ``s = sigmoid(raw + 2)``:
   ``_build.py`` with nvcc, bound with ctypes) or raises; ``use_pallas`` is
   accepted for signature parity and selects nothing. On CPU tensors it
   runs :func:`coupling_apply_reference`.
+* :func:`launch_plan` lays the kernel out: each row is split over a
+  thread-block cluster, in 16-byte vectors. It is pure Python, so the
+  CPU tests check what the kernel will read.
 * :func:`coupling_apply_reference` is the plain PyTorch version, the
   counterpart of the JAX package's ``_xla_coupling_apply``, including the
   ``hwnc`` reduction axes. The kernel is held against it on the card.
@@ -27,6 +30,7 @@ coupling layers run the fused coupling (``coupling_fused``) instead.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +40,61 @@ _SCALE_SHIFT = 2.0  # sigmoid(raw + 2): coupling starts near identity
 # Kernel launches by coupling_apply since the last reset (a plain count:
 # a run sets it to 0, drives the path, and reads it).
 launches = 0
+
+
+# The kernel's launch layout (its kThreads, kVec, kUnroll, kMaxCluster).
+_THREADS = 128  # threads per block
+_VEC = 4  # float32 values per 16-byte vector
+_UNROLL = 4  # vectors per operand a thread loads before it uses one
+_MAX_CLUSTER = 8  # blocks per row: the portable cluster size
+# Blocks to aim for: 4 per SM of the H100 SXM's 132, so that every byte
+# of a flagship call is requested in one wave.
+_TARGET_BLOCKS = 4 * 132
+
+
+class LaunchPlan(NamedTuple):
+    """One launch of K1: grid (rows, cluster) of ``threads``-thread blocks,
+    cluster dims (1, cluster, 1), one cluster per row. Block rank r takes
+    the row body's 16-byte vectors [r * vec_per_rank, (r + 1) *
+    vec_per_rank); rank 0 also takes the scalar head, rank cluster - 1
+    the scalar tail (:meth:`split`)."""
+
+    rows: int
+    d: int  # float32 values per row
+    cluster: int  # blocks per row, 1..8
+    vec_per_rank: int  # body vectors per block at most
+    threads: int = _THREADS
+    vec: int = _VEC
+    unroll: int = _UNROLL
+
+    def head(self, row: int) -> int:
+        """Values of ``row`` before its first 16-byte boundary (the
+        tensors start on one)."""
+        return min(-row * self.d % self.vec, self.d)
+
+    def split(self, head: int) -> tuple[tuple[int, int], list[tuple[int, int]], tuple[int, int]]:
+        """The kernel's cut of a row whose first ``head`` values lie before
+        a 16-byte boundary, as value ranges [start, stop): the scalar head
+        (rank 0), each rank's body and the scalar tail (the last rank)."""
+        n_vec = (self.d - head) // self.vec
+        tail = head + n_vec * self.vec
+        bodies = []
+        for r in range(self.cluster):
+            v0 = min(r * self.vec_per_rank, n_vec)
+            v1 = min(v0 + self.vec_per_rank, n_vec)
+            bodies.append((head + v0 * self.vec, head + v1 * self.vec))
+        return (0, head), bodies, (tail, self.d)
+
+
+def launch_plan(rows: int, d: int) -> LaunchPlan:
+    """K1's layout for ``rows`` rows of ``d`` float32 values: as many blocks
+    per row (up to 8) as bring the grid to ~4 per SM, as long as each
+    thread still gets a whole vector."""
+    if not 0 <= rows <= 2**31 - 1 or d < 0:
+        raise ValueError(f"launch_plan: rows {rows} and d {d} out of range")
+    n_vec = d // _VEC
+    cluster = max(1, min(_MAX_CLUSTER, -(-_TARGET_BLOCKS // max(rows, 1)), n_vec // _THREADS))
+    return LaunchPlan(rows, d, cluster, -(-n_vec // cluster))
 
 
 def _field_axes(layout: str) -> tuple[int, int, int]:
@@ -70,10 +129,18 @@ def _entry():
     fn = _build.load("coupling_apply").tpf_coupling_apply
     if fn.argtypes is None:
         ptr = ctypes.c_void_p
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_int, ptr]
+        i64, i32 = ctypes.c_longlong, ctypes.c_int
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i32, i64, i32, i32, i32, i32, ptr]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _rows16(a: torch.Tensor, d: int) -> torch.Tensor:
+    """``a`` as contiguous (rows, d) starting on a 16-byte boundary, as the
+    kernel reads it: a view that starts elsewhere (a storage offset) is
+    copied into a fresh tensor."""
+    a = a.reshape(-1, d).contiguous()
+    return a if a.data_ptr() % 16 == 0 else a.clone()
 
 
 def _launch(x: torch.Tensor, raw: torch.Tensor, t: torch.Tensor, reverse: bool):
@@ -81,14 +148,15 @@ def _launch(x: torch.Tensor, raw: torch.Tensor, t: torch.Tensor, reverse: bool):
     rows are the flattened leading axes, D = H*W*C."""
     global launches
     lead, d = x.shape[:-3], x.shape[-3] * x.shape[-2] * x.shape[-1]
-    x2, raw2, t2 = (a.reshape(-1, d).contiguous() for a in (x, raw, t))
-    rows = x2.shape[0]
-    y = torch.empty_like(x2)
-    ld = torch.empty(rows, dtype=torch.float32, device=x.device)
+    x2, raw2, t2 = (_rows16(a, d) for a in (x, raw, t))
+    plan = launch_plan(x2.shape[0], d)
+    y = torch.empty_like(x2)  # fresh, so 16-byte aligned like the inputs
+    ld = torch.empty(plan.rows, dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = _entry()(x2.data_ptr(), raw2.data_ptr(), t2.data_ptr(), y.data_ptr(),
-                       ld.data_ptr(), rows, d, int(reverse), stream)
+                       ld.data_ptr(), plan.rows, d, plan.cluster, plan.vec_per_rank,
+                       plan.threads, plan.vec, plan.unroll, int(reverse), stream)
     if err != 0:
         raise RuntimeError(f"coupling_apply kernel launch failed: cudaError {err}")
     launches += 1
