@@ -22,7 +22,18 @@ and read just after:
     coupling forward launches K2, its backward differentiates the plain
     version; then a resume from the saved checkpoint (phase "train");
   * the coupling-apply entry point ``kernels.coupling_apply``, forward,
-    reverse and gradient, through K1 (phase "K1 vs plain").
+    reverse and gradient, through K1 (phase "K1 vs plain");
+  * the rollout CLI, ``python -m tpuflow_torch.cli.rollout``, in-process
+    on a checkpoint in the exporter's format with a per-scale learned
+    tau, 64 members, its LF input wrap-tiled (phase "rollout CLI");
+  * the ``cylinder-array`` case at its preset (4 members, 100 steps,
+    96 x 96), with K2 held against its plain version and timed at the
+    case's shapes (phase "cylinder");
+  * the batched rollout, 4 trajectories x 16 members as one batch,
+    against a loop of single rollouts at f32, and timed at bf16 (phase
+    "batched");
+  * the overflow redraw: a forced member redrawn, the others untouched,
+    and the rollout's rate with the redraw off and on (phase "redraw").
 
 Every phase prints its seconds; any failed check exits non-zero. The
 last line of standard output is
@@ -95,6 +106,9 @@ TRAIN_TOL_LOSS, TRAIN_TOL_GRAD = 1e-5, 1e-3
 TRAIN_ARGS = ["data.n_train_traj=8", "data.train_steps=16", "data.batch_size=8",
               "data.window=8", "train.log_every=1"]
 TRAIN_EPOCHS = 2
+# The rollout CLI phase: 24 steps over the fixture's 16 stored ones, and a
+# per-scale tau of the flagship's magnitude in the checkpoint's meta.
+CLI_STEPS, CLI_TAU = 24, (0.87, 0.86, 0.865)
 # f32 rollout stats, kernel on the card vs plain on the CPU, relative to
 # max(1, max |reference|): 24 reverse couplings carry the summation-order
 # differences of every conv into the sampled fields.
@@ -200,9 +214,10 @@ def random_coupling(b, h, w, ca, width, growth, layers, dtype, h0c_batch, gen, d
     return xa, xb, h0c, net
 
 
-def kernel_phase(cfg, dev):
-    """K2 against its plain version at the rollout's three shapes;
-    returns the kernels-line entry (without launches)."""
+def kernel_phase(cfg, dev, b=N_MEMBERS, b_train=8):
+    """K2 against its plain version at the rollout's three shapes with
+    ``b`` members (timed also at ``b_train``, the training batch, unless
+    None); returns the kernels-line entry (without launches)."""
     import torch
 
     from tpuflow_torch.kernels.coupling_fused import fused_coupling, fused_coupling_reference
@@ -210,7 +225,6 @@ def kernel_phase(cfg, dev):
 
     gen = torch.Generator().manual_seed(1)
     width, growth, layers = cfg.coupling_width, cfg.growth_rate, cfg.coupling_layers
-    b = N_MEMBERS
     worst = 0.0
     shapes = []
     c = cfg.channels
@@ -259,18 +273,23 @@ def kernel_phase(cfg, dev):
             lambda: fused_coupling_reference(xa, xb, h0c, net, reverse=True), 20)
         chain_ms = cudnn_chain_ms(b, h, w, ca, width, growth, layers, dev)
         bound_ms, bound_by, flops, nbytes = k2_bound(xa, xb, h0c, net, growth, layers)
-        x8 = random_coupling(8, h, w, ca, width, growth, layers, torch.bfloat16, 8, gen, dev)
-        ms_b8 = time_graph_ms(lambda: fused_coupling(*x8, reverse=True), 20)
-        bound_b8 = k2_bound(*x8, growth, layers)[0]
-        shapes.append(dict(scale=l, shape=[b, h, w, ca], ms=ms, eager_ms=eager_ms,
-                           plain_ms=plain_ms, cudnn_chain_ms=chain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, gflop=flops / 1e9, mbytes=nbytes / 1e6,
-                           ms_b8=ms_b8, bound_ms_b8=bound_b8))
+        shape = dict(scale=l, shape=[b, h, w, ca], ms=ms, eager_ms=eager_ms,
+                     plain_ms=plain_ms, cudnn_chain_ms=chain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, gflop=flops / 1e9, mbytes=nbytes / 1e6)
+        small = ""
+        if b_train:
+            xs = random_coupling(b_train, h, w, ca, width, growth, layers, torch.bfloat16,
+                                 b_train, gen, dev)
+            shape.update(ms_b8=time_graph_ms(lambda: fused_coupling(*xs, reverse=True), 20),
+                         bound_ms_b8=k2_bound(*xs, growth, layers)[0])
+            small = (f"; B = {b_train}: {shape['ms_b8']:.5f} ms (bound "
+                     f"{shape['bound_ms_b8']:.5f})")
+        shapes.append(shape)
         print(f"  scale {l} K2 {ms:.5f} ms/launch in a graph, {eager_ms:.5f} eager (bound "
               f"{bound_ms:.5f} ms by {bound_by}, {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB, "
-              f"{100 * bound_ms / ms:.1f}% of the bound reached); B = 8: {ms_b8:.5f} ms (bound "
-              f"{bound_b8:.5f}); plain version {plain_ms:.4f} ms (not a yardstick); cuDNN's "
-              f"five bf16 convs {chain_ms:.5f} ms (a yardstick)", flush=True)
+              f"{100 * bound_ms / ms:.1f}% of the bound reached){small}; plain version "
+              f"{plain_ms:.4f} ms (not a yardstick); cuDNN's five bf16 convs {chain_ms:.5f} ms "
+              "(a yardstick)", flush=True)
     mean = lambda k: sum(s[k] for s in shapes) / len(shapes)  # noqa: E731
     return {
         "name": "fused_coupling",
@@ -432,7 +451,7 @@ def reference_phase(cfg, dev):
     import torch
 
     from tpuflow_torch.eval import make_ensemble_rollout
-    from tpuflow_torch.models import TMGlow, perturb_
+    from tpuflow_torch.models import TMGlow, latent_shapes, perturb_
 
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     cpu = TMGlow(cfg32, device="cpu", seed=0)
@@ -442,17 +461,8 @@ def reference_phase(cfg, dev):
     n, steps = 2, 2
     gen = torch.Generator().manual_seed(5)
     lf = torch.randn(steps, *cfg.lf_shape, cfg.channels, generator=gen)
-    feats = cpu.encode_lf(lf[:1])
-    eps = []
-    for _ in range(steps):
-        row, c = [], cfg.channels
-        for l, f in enumerate(feats):
-            h, w = f.shape[1:3]
-            c *= 4
-            ch = c // 2 if l < cfg.n_scales - 1 else c
-            row.append(torch.randn(n, h, w, ch, generator=gen))
-            c = ch
-        eps.append(row)
+    eps = [[torch.randn(s, generator=gen) for s in latent_shapes(cfg, n)]
+           for _ in range(steps)]
     want = make_ensemble_rollout(cpu, n, TAU)(lf, eps=eps)
     got = make_ensemble_rollout(gpu, n, TAU)(
         lf.to(dev), eps=[[e.to(dev) for e in row] for row in eps])
@@ -784,6 +794,261 @@ def train_share_phase(cfg, dev) -> dict:
     return out
 
 
+def rollout_cli_phase(dev, overrides=()) -> dict:
+    """The serving path: ``python -m tpuflow_torch.cli.rollout`` in-process
+    on a checkpoint in ``tools/export_to_torch.py``'s format ("model",
+    "norm", "meta" with a per-scale ``learned_tau``; no optimizer state)
+    that holds the seeded init of "slice" and the fixture's normalization;
+    64 members, 24 steps over the 16 stored ones of the "train" phase's
+    fixture (TRAIN_ARGS), so the LF input is wrap-tiled. K2 launches are
+    counted over the CLI's warm-up and timed runs.
+
+    The "train" phase's checkpoint (6 optimizer steps from its init)
+    cannot serve here: its reverse overflows in every member at tau >=
+    0.6, through the kernel and the CPU plain version alike."""
+    import json
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpuflow_torch.cli.rollout import main as rollout_main
+    from tpuflow_torch.configs import load_case, parse_cli_overrides
+    from tpuflow_torch.data import load_dataset
+    from tpuflow_torch.kernels import coupling_fused
+    from tpuflow_torch.models import TMGlow, perturb_
+    from tpuflow_torch.train import Checkpointer
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        args = [*TRAIN_ARGS, *overrides, f"train.checkpoint_dir={tmp}",
+                f"eval.rollout_steps={CLI_STEPS}", f"eval.n_samples={N_MEMBERS}",
+                f"eval.output_dir={tmp}/eval"]
+        cfg = load_case("backward-step", parse_cli_overrides(args))
+        check(cfg.eval.rollout_steps > cfg.data.train_steps,
+              "the CLI run wrap-tiles its LF input")
+        model = TMGlow(cfg.model, device="cpu", seed=0)
+        perturb_(model, 1)
+        norm = load_dataset(cfg.data, cfg.model, "train").norm
+        Checkpointer(f"{tmp}/backward-step").save(1, {
+            "model": model.state_dict(),
+            "norm": {k: torch.from_numpy(v) for k, v in norm.to_dict().items()},
+            "meta": {"learned_tau": list(CLI_TAU), "source": "chip_smoke.py seeded init"},
+        })
+        per_step = cfg.model.n_scales * cfg.model.n_flow_steps
+
+        coupling_fused.launches = 0
+        metrics = rollout_main(["backward-step", *args, "--device", dev.type])
+        torch.cuda.synchronize()
+        launches = coupling_fused.launches
+        out = pathlib.Path(tmp) / "eval" / "backward-step"
+        saved = json.loads((out / "rollout_metrics.json").read_text())
+        with np.load(out / "rollout_stats.npz") as f:
+            stats = {k: f[k] for k in f.files}
+    shape = (CLI_STEPS, *cfg.model.hf_shape, cfg.model.channels)
+    print(f"  {N_MEMBERS} members x {CLI_STEPS} steps (16 stored, wrap-tiled), learned tau "
+          f"{saved['temperature']}: {saved['rollout_steps_per_sec']:.3f} steps/s (the CLI's "
+          f"timed run); K2 launches {launches} (expected {per_step} x {CLI_STEPS} x 2 runs)",
+          flush=True)
+    check(launches == per_step * CLI_STEPS * 2, "K2 launch count of the rollout CLI")
+    check(saved == metrics and set(saved) == {"rollout_steps_per_sec", "steps", "n_samples",
+                                              "rollout_steps_per_sec_seconds", "temperature",
+                                              "backend"}, "rollout_metrics.json keys")
+    check(saved["steps"] == CLI_STEPS and saved["n_samples"] == N_MEMBERS
+          and saved["backend"] == dev.type
+          and all(abs(a - b) < 1e-6 for a, b in zip(saved["temperature"], CLI_TAU)),
+          "rollout_metrics.json values")
+    check(set(stats) == {"mean", "var"}, "rollout_stats.npz keys")
+    for k, v in stats.items():
+        check(v.shape == shape and bool(np.isfinite(v).all()), f"CLI {k} {v.shape} finite")
+    check(bool((stats["var"] >= 0).all()), "CLI var >= 0")
+    return {"launches": launches, "steps_per_sec": saved["rollout_steps_per_sec"]}
+
+
+def cylinder_phase(dev, overrides=()) -> dict:
+    """The ``cylinder-array`` case at its preset (96 x 96 HF, 4 members,
+    100 steps, tau 0.85) from a seeded random init, perturbed as in
+    "slice"; then K2 against its plain version at the case's three shapes
+    and timed beside its bound."""
+    import torch
+
+    from tpuflow_torch.configs import load_case, parse_cli_overrides
+    from tpuflow_torch.eval import make_ensemble_rollout
+    from tpuflow_torch.kernels import coupling_fused
+    from tpuflow_torch.models import TMGlow, perturb_
+
+    case = load_case("cylinder-array", parse_cli_overrides(overrides))
+    cfg, n, steps = case.model, case.eval.n_samples, case.eval.rollout_steps
+    model = TMGlow(cfg, device=dev, seed=0)
+    perturb_(model, 1)
+    gen = torch.Generator().manual_seed(2)
+    lf = torch.randn(steps, *cfg.lf_shape, cfg.channels, generator=gen).to(dev)
+    rollout = make_ensemble_rollout(model, n, case.eval.temperature, "stats")
+    rollout(lf[:2], torch.Generator(dev).manual_seed(3))  # warm-up
+    torch.cuda.synchronize()
+
+    coupling_fused.launches = 0
+    t0 = time.perf_counter()
+    out = rollout(lf, torch.Generator(dev).manual_seed(4))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = coupling_fused.launches
+    per_step = cfg.n_scales * cfg.n_flow_steps
+    print(f"  rollout {n} members x {steps} steps at {cfg.hf_shape}: {elapsed:.3f} s, "
+          f"{steps / elapsed:.3f} steps/s, K2 launches {launches} (expected {per_step} x "
+          f"{steps})", flush=True)
+    check(launches == per_step * steps, "K2 launch count of the cylinder rollout")
+    for k in ("mean", "var"):
+        check(tuple(out[k].shape) == (steps, *cfg.hf_shape, cfg.channels)
+              and bool(torch.isfinite(out[k]).all()), f"cylinder {k} shape and finite")
+    check(bool((out["var"] >= 0).all()), "cylinder var >= 0")
+    k2 = kernel_phase(cfg, dev, b=n, b_train=None)
+    return {"launches": launches, "steps_per_sec": steps / elapsed, "max_abs_err":
+            k2["max_abs_err"], "shapes": k2["shapes"]}
+
+
+def batched_phase(cfg, dev, b=4, n=16, steps=16) -> dict:
+    """``make_batched_ensemble_rollout``, ``b`` trajectories x ``n``
+    members as one batch: at f32 against a loop of single-trajectory
+    rollouts with the same draws, then its steps/s at bf16 beside the
+    loop's."""
+    import dataclasses
+
+    import torch
+
+    from tpuflow_torch.eval import make_batched_ensemble_rollout, make_ensemble_rollout
+    from tpuflow_torch.kernels import coupling_fused
+    from tpuflow_torch.models import TMGlow, latent_shapes, perturb_
+
+    per_step = cfg.n_scales * cfg.n_flow_steps
+    gen = torch.Generator(dev).manual_seed(9)
+    lfs = torch.randn(b, steps, *cfg.lf_shape, cfg.channels, generator=gen, device=dev)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    model = TMGlow(cfg32, device=dev, seed=0)
+    perturb_(model, 1)
+    eps = [[[torch.randn(s, generator=gen, device=dev) for s in latent_shapes(cfg32, n)]
+            for _ in range(steps)] for _ in range(b)]
+    coupling_fused.launches = 0
+    got = make_batched_ensemble_rollout(model, n, TAU)(lfs, eps=eps)
+    torch.cuda.synchronize()
+    check(coupling_fused.launches == per_step * steps, "K2 launch count of the f32 batched run")
+    single = make_ensemble_rollout(model, n, TAU)
+    worst = 0.0
+    for i in range(b):
+        want = single(lfs[i], eps=eps[i])
+        for k in ("mean", "var"):
+            err = (got[k][i] - want[k]).abs().max().item()
+            scale = max(1.0, want[k].abs().max().item())
+            worst = max(worst, err / scale)
+            check(bool(torch.isfinite(got[k][i]).all()) and err <= SLICE_TOL * scale,
+                  f"batched vs loop, trajectory {i} {k}")
+    print(f"  f32 batched ({b} x {n} members x {steps} steps) vs loop: max err "
+          f"{worst:.3e} x max(1, max |ref|) (tol {SLICE_TOL})", flush=True)
+    del model, eps, got
+
+    model = TMGlow(cfg, device=dev, seed=0)
+    perturb_(model, 1)
+
+    def gens():
+        return [torch.Generator(dev).manual_seed(10 + i) for i in range(b)]
+
+    roll = make_batched_ensemble_rollout(model, n, TAU)
+    single = make_ensemble_rollout(model, n, TAU)
+    roll(lfs[:, :2], gens())  # warm-up
+    single(lfs[0, :2], gens()[0])
+    torch.cuda.synchronize()
+    coupling_fused.launches = 0
+    t0 = time.perf_counter()
+    out = roll(lfs, gens())
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = coupling_fused.launches
+    t0 = time.perf_counter()
+    for i, g in enumerate(gens()):
+        single(lfs[i], g)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    check(launches == per_step * steps, "K2 launch count of the bf16 batched run")
+    check(all(bool(torch.isfinite(v).all()) for v in out.values()), "bf16 batched stats finite")
+    res = {"launches": launches, "max_rel_err_f32": worst, "steps_per_sec": steps / elapsed,
+           "traj_steps_per_sec": b * steps / elapsed, "loop_traj_steps_per_sec": b * steps / loop_s}
+    print(f"  bf16 batched {b} x {n} members x {steps} steps: {elapsed:.3f} s, "
+          f"{res['steps_per_sec']:.3f} steps/s ({res['traj_steps_per_sec']:.3f} trajectory-steps/s; "
+          f"the loop of {b} single rollouts {res['loop_traj_steps_per_sec']:.3f}); K2 launches "
+          f"{launches} (expected {per_step} x {steps})", flush=True)
+    return res
+
+
+def redraw_phase(cfg, dev, steps: int) -> dict:
+    """The overflow redraw: one member forced non-finite at each step's
+    first draw (``sample_from_feats`` wrapped, as the CPU test does) is
+    redrawn and the others are untouched; then 64-member rollouts with
+    the redraw off and on, in turns, for its cost (no member fails)."""
+    import torch
+
+    from tpuflow_torch.eval import make_ensemble_rollout
+    from tpuflow_torch.kernels import coupling_fused
+    from tpuflow_torch.models import TMGlow, latent_shapes, perturb_
+
+    model = TMGlow(cfg, device=dev, seed=0)
+    perturb_(model, 1)
+    per_step = cfg.n_scales * cfg.n_flow_steps
+    gen = torch.Generator(dev).manual_seed(11)
+    lf = torch.randn(steps, *cfg.lf_shape, cfg.channels, generator=gen, device=dev)
+    n, t_f = 8, 4
+    eps, reps = ([[torch.randn(s, generator=gen, device=dev) for s in latent_shapes(cfg, n)]
+                  for _ in range(t_f)] for _ in range(2))
+    clean = make_ensemble_rollout(model, n, TAU, "fields")(lf[:t_f], eps=eps)
+    orig = TMGlow.sample_from_feats
+
+    def forced(self, feats, state, *, temperature=1.0, **kw):
+        x, s = orig(self, feats, state, temperature=temperature, **kw)
+        if float(torch.as_tensor(temperature).max()) > 0.7:  # not the 0.6 tau redraw
+            x = x.clone()
+            x[1] = float("inf")
+        return x, s
+
+    TMGlow.sample_from_feats = forced
+    try:
+        coupling_fused.launches = 0
+        got = make_ensemble_rollout(model, n, TAU, "fields", overflow_redraw=True)(
+            lf[:t_f], eps=eps, redraw_eps=reps)
+        torch.cuda.synchronize()
+        forced_launches = coupling_fused.launches
+    finally:
+        TMGlow.sample_from_feats = orig
+    others = [i for i in range(n) if i != 1]
+    err = (got[:, others] - clean[:, others]).abs().max().item()
+    print(f"  forced overflow of member 1 ({n} members x {t_f} steps): redrawn finite "
+          f"{bool(torch.isfinite(got[:, 1]).all())}, the others' max abs change {err:.3e}, K2 "
+          f"launches {forced_launches} (expected {per_step} x {t_f} x 2)", flush=True)
+    check(bool(torch.isfinite(got).all()) and not torch.allclose(got[:, 1], clean[:, 1])
+          and err <= SLICE_TOL * max(1.0, clean[:, others].abs().max().item())
+          and forced_launches == 2 * per_step * t_f, "overflow redraw of a forced member")
+
+    rates = {False: [], True: []}
+    rolls = {on: make_ensemble_rollout(model, N_MEMBERS, TAU, overflow_redraw=on)
+             for on in (False, True)}
+    rolls[True](lf[:2], torch.Generator(dev).manual_seed(12))  # warm-up
+    torch.cuda.synchronize()
+    launches = 0
+    for on in (False, True, True, False):
+        coupling_fused.launches = 0
+        t0 = time.perf_counter()
+        rolls[on](lf, torch.Generator(dev).manual_seed(13))
+        torch.cuda.synchronize()
+        rates[on].append(steps / (time.perf_counter() - t0))
+        if on:
+            launches = coupling_fused.launches
+        check(coupling_fused.launches == per_step * steps, "no redraw fired in the timed runs")
+    off, on = (sum(rates[k]) / 2 for k in (False, True))
+    print(f"  {N_MEMBERS} members x {steps} steps, redraw off / on / on / off: "
+          f"{rates[False][0]:.3f} / {rates[True][0]:.3f} / {rates[True][1]:.3f} / "
+          f"{rates[False][1]:.3f} steps/s; the check costs {100 * (1 - on / off):.1f}% "
+          "(mean of two each)", flush=True)
+    return {"launches": launches, "forced_launches": forced_launches,
+            "steps_per_sec_off": rates[False], "steps_per_sec_on": rates[True]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=16,
@@ -869,8 +1134,25 @@ def main() -> int:
         train.update(train_parity_phase(case, dev))
         train.update(train_share_phase(case, dev))
 
+    with phase("rollout CLI"):
+        cli = rollout_cli_phase(dev)
+
+    with phase("cylinder"):
+        cyl = cylinder_phase(dev)
+
+    with phase("batched"):
+        batched = batched_phase(cfg, dev)
+
+    with phase("redraw"):
+        redraw = redraw_phase(cfg, dev, args.steps)
+
     k2["launches"] = launches
+    k2["max_abs_err"] = max(k2["max_abs_err"], cyl["max_abs_err"])
     k2["launches_by_path"] = {"rollout": launches, "train": train.pop("launches")}
+    for name, res in (("rollout_cli", cli), ("cylinder", cyl), ("batched", batched),
+                      ("redraw", redraw)):
+        k2["launches_by_path"][name] = res.pop("launches")
+        k2[name] = res
     k2["train"] = train
     print(smi)
     print(json.dumps({"kernels": [k1, k2]}))

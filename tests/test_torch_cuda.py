@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: the fused coupling (K2) against its
 plain version, the wrapper's refusals, a small rollout through the
-kernel against the same rollout on the CPU, K2 under autograd and a
+kernel against the same rollout on the CPU, the batched rollout against
+a loop of single-trajectory rollouts, K2 under autograd and a
 training window against the CPU; the coupling apply (K1) against its
 plain version, forward, reverse, gradients and determinism.
 
@@ -29,7 +30,7 @@ import torch
 
 from tpuflow_torch.configs import ModelConfig, load_case
 from tpuflow_torch.device import resolve_device
-from tpuflow_torch.eval import make_ensemble_rollout
+from tpuflow_torch.eval import make_batched_ensemble_rollout, make_ensemble_rollout
 from tpuflow_torch.kernels import coupling_apply as ka
 from tpuflow_torch.kernels import coupling_fused as tk
 from tpuflow_torch.kernels.coupling_apply import coupling_apply, coupling_apply_reference
@@ -39,7 +40,7 @@ from tpuflow_torch.kernels.coupling_fused import (
     fused_coupling_reference,
     pack_net,
 )
-from tpuflow_torch.models import TMGlow, init_lstm_state, scale_shapes
+from tpuflow_torch.models import TMGlow, init_lstm_state, latent_shapes, perturb_
 from tpuflow_torch.train import Trainer, window_bpd_fn
 
 torch.set_num_threads(1)
@@ -121,7 +122,10 @@ def _lecun_case(device, dtype, b, h, w, ca, cb, width, growth, layers, h0c_batch
 # layer-free net (L = 0: joint_0 is the last layer); width 12 and growth 5
 # (feature rows copied in part-filled 16-byte chunks, the relu boundary
 # inside a fragment's column pair, running sums shifted by an odd number
-# of columns, h0c read without its tile).
+# of columns, h0c read without its tile); the cylinder-array preset's
+# three scales at its 4 members (48 x 48 / 24 x 24 / 12 x 12 planes: tiles
+# of 2 / 5 / 6 rows, scale 1's last tile part-filled, 96 / 120 / 72 live
+# pixels in 128-row warp tiles).
 EDGE_SHAPES = [
     (2, 8, 16, 1, 2, 16, 8, 3),
     (3, 8, 16, 6, 6, 16, 8, 3),
@@ -132,6 +136,9 @@ EDGE_SHAPES = [
     (64, 8, 16, 24, 24, 64, 32, 3),
     (2, 8, 16, 6, 6, 16, 8, 0),
     (2, 8, 16, 3, 3, 12, 5, 2),
+    (4, 48, 48, 6, 6, 64, 32, 3),
+    (4, 24, 24, 12, 12, 64, 32, 3),
+    (4, 12, 12, 24, 24, 64, 32, 3),
 ]
 
 
@@ -147,6 +154,8 @@ def test_cuda_kernel_edge_shapes(cuda_device, shape, dtype, h0c_batch, reverse):
     b, h, w, ca, cb, width, growth, layers = shape
     if shape == EDGE_SHAPES[6]:
         assert tk.tile_plan(b, h, w, width, layers * growth + 2 * ca).rows * 2 == h
+    if shape == EDGE_SHAPES[10]:
+        assert h % tk.tile_plan(b, h, w, width, layers * growth + 2 * ca).rows != 0
     tol_y, tol_ld = _TOL[dtype]
     xa, xb, h0c, net = _lecun_case(cuda_device, _DT[dtype], *shape, h0c_batch, seed=sum(shape))
     before = tk.launches
@@ -190,19 +199,40 @@ def test_cuda_rollout_matches_cpu(cuda_device):
     gpu.load_state_dict(cpu.state_dict())
     n, steps = 4, 3
     lf = torch.randn(steps, 4, 8, 3, generator=gen)
-    eps, c = [], cfg.channels
-    for l, (h, w) in enumerate(scale_shapes(cfg)):
-        c *= 4
-        ch = c // 2 if l < cfg.n_scales - 1 else c
-        eps.append((n, h, w, ch))
-        c = ch
-    eps = [[torch.randn(s, generator=gen) for s in eps] for _ in range(steps)]
+    eps = [[torch.randn(s, generator=gen) for s in latent_shapes(cfg, n)] for _ in range(steps)]
     want = make_ensemble_rollout(cpu, n, 0.85, "fields")(lf, eps=eps)
     before = tk.launches
     got = make_ensemble_rollout(gpu, n, 0.85, "fields")(
         lf.to(cuda_device), eps=[[e.to(cuda_device) for e in row] for row in eps])
     assert tk.launches - before == steps * cfg.n_scales * cfg.n_flow_steps
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_batched_rollout_matches_loop(cuda_device):
+    """The batched rollout (3 trajectories x 4 members as one batch of 12
+    through the kernel) against a loop of single-trajectory rollouts on
+    the card with the same draws: 1e-4 x max(1, max |ref|) (the batch
+    changes cuDNN's choice of conditioning convs)."""
+    cfg = ModelConfig(n_scales=2, n_flow_steps=2, hf_shape=(16, 32), lf_shape=(4, 8),
+                      coupling_width=16, coupling_layers=2, growth_rate=8, encoder_width=8,
+                      lstm_hidden=8, cond_channels=8, compute_dtype="float32")
+    model = TMGlow(cfg, device=cuda_device, seed=0)
+    perturb_(model, 1, scale=0.05)
+    b, n, steps = 3, 4, 3
+    gen = torch.Generator().manual_seed(2)
+    lfs = torch.randn(b, steps, 4, 8, 3, generator=gen).to(cuda_device)
+    eps = [[[torch.randn(s, generator=gen).to(cuda_device) for s in latent_shapes(cfg, n)]
+            for _ in range(steps)] for _ in range(b)]
+    before = tk.launches
+    got = make_batched_ensemble_rollout(model, n, 0.85)(lfs, eps=eps)
+    assert tk.launches - before == steps * cfg.n_scales * cfg.n_flow_steps
+    single = make_ensemble_rollout(model, n, 0.85)
+    for i in range(b):
+        want = single(lfs[i], eps=eps[i])
+        for k in ("mean", "var"):
+            tol = 1e-4 * max(1.0, want[k].abs().max().item())
+            torch.testing.assert_close(got[k][i], want[k], atol=tol, rtol=0)
 
 
 SMALL = dict(n_scales=2, n_flow_steps=2, hf_shape=(16, 32), lf_shape=(4, 8),

@@ -10,8 +10,13 @@ in torch, so the tests draw JAX's latents exactly as its rollout does --
 ``normal(rng_l, mean.shape)`` -- and hand them to the port as ``eps``.
 Both sides compute at float32; tolerances are float32 ones, loosened
 where the reverse flow amplifies summation-order differences over
-2 scales x 2 steps x 4 timesteps.
+2 scales x 2 steps x 4 timesteps. The overflow redraw is forced by
+wrapping ``sample_from_feats`` on both sides (member 1's first draw
+overflows); the ``cylinder-array`` case runs at its full preset size,
+with the port's seeded init carried to JAX by :func:`_to_flax`.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -20,14 +25,16 @@ import pytest
 import torch
 
 from tpuflow.configs.config import ModelConfig as JModelConfig
+from tpuflow.configs.config import load_case as j_load_case
+from tpuflow.eval.rollout import make_batched_ensemble_rollout as j_make_batched_rollout
 from tpuflow.eval.rollout import make_ensemble_rollout as j_make_ensemble_rollout
 from tpuflow.models import TMGlow as JTMGlow
 from tpuflow.models import init_lstm_state as j_init_lstm_state
 from tpuflow.models.tmglow import build_inv_caches as j_build_inv_caches
 from tpuflow_torch.configs import ModelConfig, load_case
 from tpuflow_torch.convert import from_flax
-from tpuflow_torch.eval import make_ensemble_rollout
-from tpuflow_torch.models import TMGlow, init_lstm_state, scale_shapes
+from tpuflow_torch.eval import make_batched_ensemble_rollout, make_ensemble_rollout
+from tpuflow_torch.models import TMGlow, latent_shapes, perturb_, scale_shapes
 
 torch.set_num_threads(1)
 
@@ -60,33 +67,25 @@ def pair():
     return jm, v, tm
 
 
-def _latent_shapes(cfg, n):
-    """Shape of each scale's standard-normal draw: the factored half at
-    the splits, the whole latent at the base prior."""
-    shapes, c = [], cfg.channels
-    for l, (h, w) in enumerate(scale_shapes(cfg)):
-        c *= 4
-        if l < cfg.n_scales - 1:
-            shapes.append((n, h, w, c // 2))
-            c //= 2
-        else:
-            shapes.append((n, h, w, c))
-    return shapes
-
-
 def _jax_step_eps(sub, cfg, n):
     """The draws glow.reverse makes from one step key."""
     keys = jax.random.split(sub, cfg.n_scales)
     return [np.asarray(jax.random.normal(k, s, jnp.float32))
-            for k, s in zip(keys, _latent_shapes(cfg, n))]
+            for k, s in zip(keys, latent_shapes(cfg, n))]
 
 
-def _jax_rollout_eps(key, cfg, n, steps):
-    out = []
+def _jax_rollout_eps(key, cfg, n, steps, redraw=False):
+    """JAX's draws of a rollout: ``split(key)`` per step and, with the
+    overflow redraw on, a second ``split(key)`` per step for the redraw's
+    draws, returned as a second list."""
+    out, redraws = [], []
     for _ in range(steps):
         key, sub = jax.random.split(key)
         out.append([torch.tensor(e) for e in _jax_step_eps(sub, cfg, n)])
-    return out
+        if redraw:
+            key, sub2 = jax.random.split(key)
+            redraws.append([torch.tensor(e) for e in _jax_step_eps(sub2, cfg, n)])
+    return (out, redraws) if redraw else out
 
 
 def test_load_case_overrides_and_layout_fields():
@@ -209,3 +208,159 @@ def test_rollout_with_generator_is_seeded_and_finite(pair):
         make_ensemble_rollout(tm, 1, TAU)
     with pytest.raises(ValueError):
         roll(lf, eps=[])
+
+
+def _rel_close(got, want, tol=1e-4):
+    """Within ``tol`` x max(1, max |want|)."""
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0,
+                               atol=tol * max(1.0, float(np.abs(want).max())))
+
+
+def _force_overflow(monkeypatch, n):
+    """Member 1 of every trajectory overflows at its first draw of each
+    step (tau > 0.7; the redraw draws at 0.6 x 0.85), on both sides."""
+    j_orig, t_orig = JTMGlow.sample_from_feats, TMGlow.sample_from_feats
+
+    def j_forced(self, feats, state, rng, temperature=1.0, inv_caches=None):
+        x, s = j_orig(self, feats, state, rng, temperature, inv_caches)
+        first = jnp.max(jnp.asarray(temperature)) > 0.7
+        return x.at[1].set(jnp.where(first, jnp.inf, x[1])), s
+
+    def t_forced(self, feats, state, *, temperature=1.0, **kw):
+        x, s = t_orig(self, feats, state, temperature=temperature, **kw)
+        if float(torch.as_tensor(temperature).max()) > 0.7:
+            x = x.clone()
+            x[1::n] = float("inf")
+        return x, s
+
+    monkeypatch.setattr(JTMGlow, "sample_from_feats", j_forced)
+    monkeypatch.setattr(TMGlow, "sample_from_feats", t_forced)
+
+
+def test_overflow_redraw_matches_jax(pair, monkeypatch):
+    """JAX's overflow_redraw against the port's with member 1 forced
+    non-finite: the same redraw at 0.6 tau from the same state, only the
+    failed member replaced, the others as without the redraw."""
+    jm, v, tm = pair
+    lf = _np(22, (T, 4, 8, 3))
+    key = jax.random.PRNGKey(23)
+    eps, redraw_eps = _jax_rollout_eps(key, tm.cfg, N, T, redraw=True)
+    clean = make_ensemble_rollout(tm, N, TAU, "fields")(torch.tensor(lf), eps=eps)
+    _force_overflow(monkeypatch, N)
+    want = j_make_ensemble_rollout(jm, N, TAU, "fields", overflow_redraw=True)(
+        v, jnp.asarray(lf), key)
+    got = make_ensemble_rollout(tm, N, TAU, "fields", overflow_redraw=True)(
+        torch.tensor(lf), eps=eps, redraw_eps=redraw_eps)
+    assert torch.isfinite(got).all()
+    _rel_close(got.numpy(), want)
+    others = [0, 2, 3]
+    assert torch.equal(got[:, others], clean[:, others])
+    assert not torch.allclose(got[:, 1], clean[:, 1])
+    # Without the redraw the forced member stays non-finite.
+    raw = make_ensemble_rollout(tm, N, TAU, "fields")(torch.tensor(lf), eps=eps)
+    assert not torch.isfinite(raw[:, 1]).any() and torch.equal(raw[:, others], clean[:, others])
+
+
+@pytest.mark.parametrize("redraw", [False, True])
+@pytest.mark.parametrize("collect", ["stats", "fields"])
+def test_batched_rollout_matches_jax_and_loop(pair, monkeypatch, collect, redraw):
+    """B trajectories x N members as one batch: against JAX's batched
+    (vmapped) rollout on per-trajectory keys, and against the port's own
+    loop over trajectories with the same draws."""
+    jm, v, tm = pair
+    b, n, steps = 2, 3, 3
+    lfs = _np(24, (b, steps, 4, 8, 3))
+    rngs = jax.random.split(jax.random.PRNGKey(25), b)
+    draws = [_jax_rollout_eps(rngs[i], tm.cfg, n, steps, redraw=redraw) for i in range(b)]
+    eps = [d[0] for d in draws] if redraw else draws
+    redraw_eps = [d[1] for d in draws] if redraw else None
+    if redraw:
+        _force_overflow(monkeypatch, n)
+    want = j_make_batched_rollout(jm, n, TAU, collect, overflow_redraw=redraw)(
+        v, jnp.asarray(lfs), rngs)
+    got = make_batched_ensemble_rollout(tm, n, TAU, collect, overflow_redraw=redraw)(
+        torch.tensor(lfs), eps=eps, redraw_eps=redraw_eps)
+    single = make_ensemble_rollout(tm, n, TAU, collect, overflow_redraw=redraw)
+    loop = [single(torch.tensor(lfs[i]), eps=eps[i],
+                   redraw_eps=None if redraw_eps is None else redraw_eps[i]) for i in range(b)]
+    if collect == "fields":
+        assert got.shape == (b, steps, n, 16, 32, 3) and torch.isfinite(got).all()
+        _rel_close(got.numpy(), want)
+        _rel_close(got.numpy(), torch.stack(loop).numpy())
+        return
+    for k in ("mean", "var"):
+        assert got[k].shape == (b, steps, 16, 32, 3)
+        _rel_close(got[k].numpy(), want[k])
+        _rel_close(got[k].numpy(), torch.stack([o[k] for o in loop]).numpy())
+
+
+def test_batched_rollout_generators_equal_the_loop(pair):
+    """With a generator per trajectory, trajectory b draws what a
+    single-trajectory rollout draws from that generator."""
+    _, _, tm = pair
+    b, n = 3, 2
+    lfs = torch.tensor(_np(26, (b, 2, 4, 8, 3)))
+    got = make_batched_ensemble_rollout(tm, n, TAU)(
+        lfs, [torch.Generator().manual_seed(i) for i in range(b)])
+    single = make_ensemble_rollout(tm, n, TAU)
+    for i in range(b):
+        want = single(lfs[i], torch.Generator().manual_seed(i))
+        for k in ("mean", "var"):
+            _rel_close(got[k][i].numpy(), want[k].numpy())
+    roll = make_batched_ensemble_rollout(tm, n, TAU)
+    with pytest.raises(ValueError, match="generators"):
+        roll(lfs, [torch.Generator()])
+    with pytest.raises(ValueError, match="eps"):
+        roll(lfs, eps=[[]] * b)
+    with pytest.raises(ValueError, match="stats-mode"):
+        make_batched_ensemble_rollout(tm, 1, TAU)
+
+
+def _to_flax(state_dict) -> dict:
+    """The port's state dict as a Flax variable tree: the inverse of
+    ``convert.from_flax`` (OIHW ``weight`` -> HWIO ``kernel``; the
+    inv-1x1's ``p`` and ``sign_s`` in ``buffers``; ActNorm flags dropped)."""
+    tree = {"params": {}, "buffers": {}}
+    for key, val in state_dict.items():
+        *path, leaf = key.split(".")
+        if leaf == "initialized":
+            continue
+        arr = val.numpy()
+        if leaf == "weight":
+            leaf, arr = "kernel", np.transpose(arr, (2, 3, 1, 0))
+        node = tree["buffers" if leaf in ("p", "sign_s") else "params"]
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = arr
+    return tree
+
+
+def test_cylinder_array_preset_and_rollout_match_jax():
+    """``cylinder-array``: the preset's model and eval values are the JAX
+    package's, and a 96 x 96 f32 rollout of 2 members x 2 steps at full
+    depth matches JAX on shared weights and draws."""
+    cfg, jcfg = load_case("cylinder-array"), j_load_case("cylinder-array")
+    for f in dataclasses.fields(cfg.model):
+        assert getattr(cfg.model, f.name) == getattr(jcfg.model, f.name), f.name
+    for f in dataclasses.fields(cfg.eval):
+        assert getattr(cfg.eval, f.name) == getattr(jcfg.eval, f.name), f.name
+    assert (cfg.model.hf_shape, cfg.eval.n_samples) == ((96, 96), 4)
+    assert scale_shapes(cfg.model)[-1] == (12, 12)
+
+    mcfg = dataclasses.replace(cfg.model, compute_dtype="float32")
+    tm = TMGlow(mcfg, device="cpu", seed=0)
+    perturb_(tm, 1)
+    tree = _to_flax(tm.state_dict())
+    back = from_flax(tree, tm)
+    assert all(torch.equal(back[k], v) for k, v in tm.state_dict().items()
+               if not k.endswith("initialized"))
+    jm = JTMGlow(dataclasses.replace(jcfg.model, compute_dtype="float32"))
+    n, steps = 2, 2
+    lf = _np(27, (steps, 24, 24, 3))
+    key = jax.random.PRNGKey(28)
+    want = j_make_ensemble_rollout(jm, n, TAU, "fields")(tree, jnp.asarray(lf), key)
+    got = make_ensemble_rollout(tm, n, TAU, "fields")(
+        torch.tensor(lf), eps=_jax_rollout_eps(key, mcfg, n, steps))
+    assert got.shape == (steps, n, 96, 96, 3) and torch.isfinite(got).all()
+    _rel_close(got.numpy(), want)

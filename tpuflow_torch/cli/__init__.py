@@ -1,6 +1,7 @@
 """Command-line entry points of the port:
 
     python -m tpuflow_torch.cli.train <case> [key=value ...] [--device cuda|cpu]
+    python -m tpuflow_torch.cli.rollout <case> [key=value ...] [--device cuda|cpu]
 
 The positional argument selects a case preset (``configs/cases``);
 trailing ``key=value`` pairs override any config field by dotted path

@@ -4,8 +4,8 @@ overrides.
 
 Counterpart of ``tpuflow/configs/config.py`` (``ModelConfig``, the
 fields of ``DataConfig`` and ``TrainConfig`` that the trainer reads, the
-rollout fields of ``EvalConfig``, ``load_case``). The port keeps its own
-copy so that it imports nothing of the JAX package.
+fields of ``EvalConfig`` that the rollout CLI reads, ``load_case``). The
+port keeps its own copy so that it imports nothing of the JAX package.
 
 ``conv_layout``, ``flow_layout`` and ``use_pallas`` are accepted for
 parity with the JAX package's configs, but select nothing: the port
@@ -121,11 +121,34 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class EvalConfig:
-    """The rollout fields of the JAX package's ``EvalConfig``."""
+    """The fields of the JAX package's ``EvalConfig`` that the rollout and
+    its CLI read, with its defaults."""
 
     n_samples: int = 64
     rollout_steps: int = 100
     temperature: float = 0.85
+    # Per-scale sampling temperatures "t0,t1,t2" (scale 0 = the finest
+    # split). "" = use the scalar `temperature`, unless the checkpoint
+    # carries a fine-tuned "learned_tau" in its meta
+    # (eval/loading.resolve_temperature priority: this override >
+    # learned_tau > scalar).
+    temperature_scales: str = ""
+    output_dir: str = "./eval_out"
+    # Post-hoc UQ spread inflation: rollout stats report
+    # var * spread_scale**2; 1.0 = raw ensemble dispersion.
+    spread_scale: float = 1.0
+    # Per-location inflation field: path to an (H, W, C) .npy of factors.
+    # When set, deployed variance surfaces use var * field**2 (overrides
+    # the scalar). "" = off.
+    spread_field: str = ""
+    # Member-level overflow recovery in rollouts (eval/rollout.py):
+    # redraw failed ensemble members once at 0.6x temperature, then
+    # zero-fill. The check waits on the device every step, so default off.
+    overflow_redraw: bool = False
+    # Evaluating with no checkpoint is an error by default: a typo'd
+    # checkpoint_dir would otherwise silently evaluate an untrained
+    # model. Set true only for explicit untrained smoke rollouts.
+    allow_untrained: bool = False
 
 
 @dataclass(frozen=True)

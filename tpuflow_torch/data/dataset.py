@@ -46,10 +46,16 @@ class NormStats:
     def to_dict(self) -> dict:
         return {k: np.asarray(v) for k, v in dataclasses.asdict(self).items()}
 
+    @staticmethod
+    def from_dict(d: dict) -> "NormStats":
+        """From :meth:`to_dict`'s keys; values may be arrays or CPU tensors."""
+        return NormStats(**{k: np.asarray(v, np.float32) for k, v in d.items()})
+
 
 class TrajectoryDataset:
     """Aligned (LF, HF) trajectories, held normalized, with train-time
-    batching and windowing."""
+    batching and windowing; ``denorm_*`` map model outputs back to
+    physical units."""
 
     def __init__(self, lf: np.ndarray, hf: np.ndarray, norm: NormStats | None = None):
         if lf.ndim != 5 or hf.ndim != 5 or lf.shape[:2] != hf.shape[:2]:
@@ -67,6 +73,20 @@ class TrajectoryDataset:
     @property
     def n_steps(self) -> int:
         return self.lf.shape[1]
+
+    def denorm_hf(self, x: np.ndarray) -> np.ndarray:
+        """Normalized HF field -> physical units (affine)."""
+        return x * self.norm.hf_std + self.norm.hf_mean
+
+    def denorm_hf_var(self, var: np.ndarray) -> np.ndarray:
+        """Normalized HF variance -> physical units: a variance scales by
+        sigma^2 and takes no mean shift (denorm_hf on a variance would add
+        the mean flow to the TKE)."""
+        return var * self.norm.hf_std**2
+
+    def denorm_lf(self, x: np.ndarray) -> np.ndarray:
+        """Normalized LF field -> physical units (affine)."""
+        return x * self.norm.lf_std + self.norm.lf_mean
 
     def batch_indices(self, seed: int, batch_size: int, drop_remainder: bool = True):
         """Yield shuffled trajectory-index batches: the one source of an

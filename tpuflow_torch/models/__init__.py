@@ -1,7 +1,13 @@
 from tpuflow_torch.models.conv_lstm import ConvLSTMCell
 from tpuflow_torch.models.glow import GlowStep, MultiScaleGlow
 from tpuflow_torch.models.lf_encoder import LFEncoder
-from tpuflow_torch.models.tmglow import TMGlow, init_lstm_state, perturb_, scale_shapes
+from tpuflow_torch.models.tmglow import (
+    TMGlow,
+    init_lstm_state,
+    latent_shapes,
+    perturb_,
+    scale_shapes,
+)
 
 __all__ = [
     "ConvLSTMCell",
@@ -10,6 +16,7 @@ __all__ = [
     "MultiScaleGlow",
     "TMGlow",
     "init_lstm_state",
+    "latent_shapes",
     "perturb_",
     "scale_shapes",
 ]

@@ -40,6 +40,19 @@ def scale_shapes(cfg: ModelConfig) -> list[tuple[int, int]]:
     return [(h >> (l + 1), w >> (l + 1)) for l in range(cfg.n_scales)]
 
 
+def latent_shapes(cfg: ModelConfig, batch: int) -> list[tuple[int, ...]]:
+    """Shape of scale l's standard-normal draw in a reverse pass: the
+    factored-out half at a split, the whole remaining latent at the base
+    prior (scale L-1)."""
+    shapes, c = [], cfg.channels
+    for l, (h, w) in enumerate(scale_shapes(cfg)):
+        c *= 4
+        if l < cfg.n_scales - 1:
+            c //= 2
+        shapes.append((batch, h, w, c))
+    return shapes
+
+
 def init_lstm_state(
     cfg: ModelConfig, batch: int, device: torch.device | str
 ) -> LSTMState:

@@ -80,6 +80,13 @@ class Trainer:
     def init_or_resume(self) -> None:
         restored = self.ckpt.restore(map_location=self.device)
         if restored is not None:
+            if "optimizer" not in restored:
+                raise ValueError(
+                    f"checkpoint step {self.ckpt.latest_step()} under {self.ckpt.directory} "
+                    "holds no optimizer state (an export of weights for serving, "
+                    f"source {restored['meta'].get('source', 'unknown')!r}): training cannot "
+                    "resume from it; point train.checkpoint_dir elsewhere"
+                )
             self.model.load_state_dict(restored["model"])
             self.optimizer.load_state_dict(restored["optimizer"])
             self.scheduler.load_state_dict(restored["scheduler"])
