@@ -33,7 +33,16 @@ and read just after:
     against a loop of single rollouts at f32, and timed at bf16 (phase
     "batched");
   * the overflow redraw: a forced member redrawn, the others untouched,
-    and the rollout's rate with the redraw off and on (phase "redraw").
+    and the rollout's rate with the redraw off and on (phase "redraw");
+  * the evaluator, ``python -m tpuflow_torch.cli.evaluate``, in-process
+    at the backward-step preset (64 members, 4 trajectories per batched
+    rollout, so K2 runs at B = 256, 32 calibration steps, 256 reference
+    steps) on a checkpoint in the exporter's format, after K2 is held
+    against its plain version at B = 256 (phase "evaluate").
+
+The rollout CLI and the evaluator draw their figures when matplotlib is
+installed, and the phases check the files; without it they run the
+CLIs' compute halves and print that the figures were not drawn.
 
 Every phase prints its seconds; any failed check exits non-zero. The
 last line of standard output is
@@ -50,6 +59,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib.util
 import itertools
 import json
 import math
@@ -113,6 +123,13 @@ CLI_STEPS, CLI_TAU = 24, (0.87, 0.86, 0.865)
 # max(1, max |reference|): 24 reverse couplings carry the summation-order
 # differences of every conv into the sampled fields.
 SLICE_TOL = 1e-4
+SMI = ["card not read"]  # nvidia-smi's name and power limit, set by main()
+# The evaluator's figures (cli/evaluate.py) besides vorticity_tNNNN.png,
+# and its artefacts.
+EVAL_FIGURES = ("nll_curve.png", "energy_spectrum.png", "reliability.png",
+                "fluctuation_pdf.png", "reliability_holdout.png", "tke.png")
+EVAL_ARTEFACTS = ("eval_metrics.json", "spread_field.npy", "spectral_filter.npz",
+                  "quantile_map.npz")
 
 
 @contextlib.contextmanager
@@ -126,6 +143,10 @@ def phase(name: str):
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def has_matplotlib() -> bool:
+    return importlib.util.find_spec("matplotlib") is not None
 
 
 def coupling_macs_per_pixel(ca, cb, width, growth, layers):
@@ -216,40 +237,21 @@ def random_coupling(b, h, w, ca, width, growth, layers, dtype, h0c_batch, gen, d
 
 def kernel_phase(cfg, dev, b=N_MEMBERS, b_train=8):
     """K2 against its plain version at the rollout's three shapes with
-    ``b`` members (timed also at ``b_train``, the training batch, unless
-    None); returns the kernels-line entry (without launches)."""
+    ``b`` members, its f32 roundtrip, and its time (also at ``b_train``,
+    the training batch, unless None); returns the kernels-line entry
+    (without launches)."""
     import torch
 
-    from tpuflow_torch.kernels.coupling_fused import fused_coupling, fused_coupling_reference
+    from tpuflow_torch.kernels.coupling_fused import fused_coupling
     from tpuflow_torch.models.tmglow import scale_shapes
 
     gen = torch.Generator().manual_seed(1)
     width, growth, layers = cfg.coupling_width, cfg.growth_rate, cfg.coupling_layers
-    worst = 0.0
-    shapes = []
+    worst = k2_parity(cfg, dev, b, gen)
     c = cfg.channels
     for l, (h, w) in enumerate(scale_shapes(cfg)):
         c = 4 * c if l == 0 else 2 * c  # squeeze x4, after a split's halving
         ca = c // 2
-        for dtype in (torch.float32, torch.bfloat16):
-            tol_y, tol_ld = TOL[str(dtype).removeprefix("torch.")]
-            for h0c_batch in (1, b, 0):
-                xa, xb, h0c, net = random_coupling(b, h, w, ca, width, growth, layers,
-                                                   dtype, h0c_batch, gen, dev)
-                for reverse in (False, True):
-                    y, ld = fused_coupling(xa, xb, h0c, net, reverse=reverse)
-                    y_ref, ld_ref = fused_coupling_reference(xa, xb, h0c, net, reverse=reverse)
-                    torch.cuda.synchronize()
-                    err_y = (y - y_ref).abs().max().item()
-                    err_ld = ((ld - ld_ref).abs() / ld_ref.abs().clamp_min(1.0)).max().item()
-                    fin = bool(torch.isfinite(y).all() and torch.isfinite(ld).all())
-                    print(f"  scale {l} {h}x{w} ca=cb={ca} {dtype} h0c_batch={h0c_batch} "
-                          f"reverse={reverse}: y err {err_y:.3e} (tol {tol_y}), "
-                          f"ld rel err {err_ld:.3e} (tol {tol_ld})", flush=True)
-                    check(fin and err_y <= tol_y and err_ld <= tol_ld,
-                          f"K2 vs plain at scale {l} {dtype} h0c_batch={h0c_batch} "
-                          f"reverse={reverse}")
-                    worst = max(worst, err_y)
         # Invertibility through the kernel: reverse(forward(x)) at f32.
         xa, xb, h0c, net = random_coupling(b, h, w, ca, width, growth, layers,
                                            torch.float32, b, gen, dev)
@@ -259,37 +261,15 @@ def kernel_phase(cfg, dev, b=N_MEMBERS, b_train=8):
         err_rt = (x_rec[..., :ca] - xa).abs().max().item()
         print(f"  scale {l} f32 roundtrip err {err_rt:.3e} (tol {ROUNDTRIP_TOL})", flush=True)
         check(err_rt <= ROUNDTRIP_TOL, f"K2 roundtrip at scale {l}")
-
-        # Timing at the rollout's configuration: bf16 nets, reverse,
-        # conditioning batched over the members. Device time per launch
-        # from a CUDA graph of 20 launches (back-to-back eager calls would
-        # also hold the host's ~0.1 ms per call), the eager time beside it;
-        # the same at B = 8, the training batch.
-        xa, xb, h0c, net = random_coupling(b, h, w, ca, width, growth, layers,
-                                           torch.bfloat16, b, gen, dev)
-        ms = time_graph_ms(lambda: fused_coupling(xa, xb, h0c, net, reverse=True), 20)
-        eager_ms = time_ms(lambda: fused_coupling(xa, xb, h0c, net, reverse=True), 20)
-        plain_ms = time_graph_ms(
-            lambda: fused_coupling_reference(xa, xb, h0c, net, reverse=True), 20)
-        chain_ms = cudnn_chain_ms(b, h, w, ca, width, growth, layers, dev)
-        bound_ms, bound_by, flops, nbytes = k2_bound(xa, xb, h0c, net, growth, layers)
-        shape = dict(scale=l, shape=[b, h, w, ca], ms=ms, eager_ms=eager_ms,
-                     plain_ms=plain_ms, cudnn_chain_ms=chain_ms, bound_ms=bound_ms,
-                     bound_by=bound_by, gflop=flops / 1e9, mbytes=nbytes / 1e6)
-        small = ""
-        if b_train:
-            xs = random_coupling(b_train, h, w, ca, width, growth, layers, torch.bfloat16,
-                                 b_train, gen, dev)
-            shape.update(ms_b8=time_graph_ms(lambda: fused_coupling(*xs, reverse=True), 20),
-                         bound_ms_b8=k2_bound(*xs, growth, layers)[0])
-            small = (f"; B = {b_train}: {shape['ms_b8']:.5f} ms (bound "
-                     f"{shape['bound_ms_b8']:.5f})")
-        shapes.append(shape)
-        print(f"  scale {l} K2 {ms:.5f} ms/launch in a graph, {eager_ms:.5f} eager (bound "
-              f"{bound_ms:.5f} ms by {bound_by}, {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB, "
-              f"{100 * bound_ms / ms:.1f}% of the bound reached){small}; plain version "
-              f"{plain_ms:.4f} ms (not a yardstick); cuDNN's five bf16 convs {chain_ms:.5f} ms "
-              "(a yardstick)", flush=True)
+    shapes = k2_times(cfg, dev, b, gen)
+    for s in shapes if b_train else ():
+        _, h, w, ca = s["shape"]
+        xs = random_coupling(b_train, h, w, ca, width, growth, layers, torch.bfloat16,
+                             b_train, gen, dev)
+        s.update(ms_b8=time_graph_ms(lambda: fused_coupling(*xs, reverse=True), 20),
+                 bound_ms_b8=k2_bound(*xs, growth, layers)[0])
+        print(f"  scale {s['scale']} K2 at B = {b_train}: {s['ms_b8']:.5f} ms/launch in a graph "
+              f"(bound {s['bound_ms_b8']:.5f})", flush=True)
     mean = lambda k: sum(s[k] for s in shapes) / len(shapes)  # noqa: E731
     return {
         "name": "fused_coupling",
@@ -309,6 +289,81 @@ def kernel_phase(cfg, dev, b=N_MEMBERS, b_train=8):
         "library_ms": None,
         "shapes": shapes,
     }
+
+
+def k2_parity(cfg, dev, b, gen=None) -> float:
+    """K2 against its plain version at the three scales' shapes with ``b``
+    members, f32 and bf16, the conditioning batched 1, ``b`` or absent,
+    both directions; returns the worst y error."""
+    import torch
+
+    from tpuflow_torch.kernels.coupling_fused import fused_coupling, fused_coupling_reference
+    from tpuflow_torch.models.tmglow import scale_shapes
+
+    gen = torch.Generator().manual_seed(1) if gen is None else gen
+    width, growth, layers = cfg.coupling_width, cfg.growth_rate, cfg.coupling_layers
+    worst, c = 0.0, cfg.channels
+    for l, (h, w) in enumerate(scale_shapes(cfg)):
+        c = 4 * c if l == 0 else 2 * c  # squeeze x4, after a split's halving
+        ca = c // 2
+        for dtype in (torch.float32, torch.bfloat16):
+            tol_y, tol_ld = TOL[str(dtype).removeprefix("torch.")]
+            for h0c_batch in (1, b, 0):
+                xa, xb, h0c, net = random_coupling(b, h, w, ca, width, growth, layers,
+                                                   dtype, h0c_batch, gen, dev)
+                for reverse in (False, True):
+                    y, ld = fused_coupling(xa, xb, h0c, net, reverse=reverse)
+                    y_ref, ld_ref = fused_coupling_reference(xa, xb, h0c, net, reverse=reverse)
+                    torch.cuda.synchronize()
+                    err_y = (y - y_ref).abs().max().item()
+                    err_ld = ((ld - ld_ref).abs() / ld_ref.abs().clamp_min(1.0)).max().item()
+                    fin = bool(torch.isfinite(y).all() and torch.isfinite(ld).all())
+                    print(f"  scale {l} B={b} {h}x{w} ca=cb={ca} {dtype} h0c_batch={h0c_batch} "
+                          f"reverse={reverse}: y err {err_y:.3e} (tol {tol_y}), "
+                          f"ld rel err {err_ld:.3e} (tol {tol_ld})", flush=True)
+                    check(fin and err_y <= tol_y and err_ld <= tol_ld,
+                          f"K2 vs plain at scale {l} B={b} {dtype} h0c_batch={h0c_batch} "
+                          f"reverse={reverse}")
+                    worst = max(worst, err_y)
+    return worst
+
+
+def k2_times(cfg, dev, b, gen=None) -> list[dict]:
+    """K2 at the rollout's configuration (bf16 nets, reverse, the
+    conditioning batched over the ``b`` members) at the three scales'
+    shapes: device time per launch from a CUDA graph of 20 launches (back-
+    to-back eager calls would also hold the host's ~0.1 ms per call), the
+    eager time beside it, its bound, the plain version's time and cuDNN's
+    five bf16 convs (a yardstick the port never calls)."""
+    import torch
+
+    from tpuflow_torch.kernels.coupling_fused import fused_coupling, fused_coupling_reference
+    from tpuflow_torch.models.tmglow import scale_shapes
+
+    gen = torch.Generator().manual_seed(1) if gen is None else gen
+    width, growth, layers = cfg.coupling_width, cfg.growth_rate, cfg.coupling_layers
+    shapes, c = [], cfg.channels
+    for l, (h, w) in enumerate(scale_shapes(cfg)):
+        c = 4 * c if l == 0 else 2 * c
+        ca = c // 2
+        xa, xb, h0c, net = random_coupling(b, h, w, ca, width, growth, layers,
+                                           torch.bfloat16, b, gen, dev)
+        ms = time_graph_ms(lambda: fused_coupling(xa, xb, h0c, net, reverse=True), 20)
+        eager_ms = time_ms(lambda: fused_coupling(xa, xb, h0c, net, reverse=True), 20)
+        plain_ms = time_graph_ms(
+            lambda: fused_coupling_reference(xa, xb, h0c, net, reverse=True), 20)
+        chain_ms = cudnn_chain_ms(b, h, w, ca, width, growth, layers, dev)
+        bound_ms, bound_by, flops, nbytes = k2_bound(xa, xb, h0c, net, growth, layers)
+        shapes.append(dict(scale=l, shape=[b, h, w, ca], ms=ms, eager_ms=eager_ms,
+                           plain_ms=plain_ms, cudnn_chain_ms=chain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, gflop=flops / 1e9, mbytes=nbytes / 1e6))
+        print(f"  scale {l} K2 at B = {b}: {ms:.5f} ms/launch in a graph, {eager_ms:.5f} eager "
+              f"(bound {bound_ms:.5f} ms by {bound_by}, {flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB, {100 * bound_ms / ms:.1f}% of the bound reached); plain "
+              f"version {plain_ms:.4f} ms (not a yardstick); cuDNN's five bf16 convs "
+              f"{chain_ms:.5f} ms (a yardstick)", flush=True)
+        del xa, xb, h0c, net
+    return shapes
 
 
 def k2_bound(xa, xb, h0c, net, growth, layers):
@@ -812,7 +867,7 @@ def rollout_cli_phase(dev, overrides=()) -> dict:
     import numpy as np
     import torch
 
-    from tpuflow_torch.cli.rollout import main as rollout_main
+    from tpuflow_torch.cli import rollout as rollout_cli
     from tpuflow_torch.configs import load_case, parse_cli_overrides
     from tpuflow_torch.data import load_dataset
     from tpuflow_torch.kernels import coupling_fused
@@ -837,19 +892,35 @@ def rollout_cli_phase(dev, overrides=()) -> dict:
         per_step = cfg.model.n_scales * cfg.model.n_flow_steps
 
         coupling_fused.launches = 0
-        metrics = rollout_main(["backward-step", *args, "--device", dev.type])
+        if has_matplotlib():
+            metrics = rollout_cli.main(["backward-step", *args, "--device", dev.type])
+        else:
+            print(f"  figures: not drawn on the card: matplotlib is not installed here, so "
+                  f"{rollout_cli.PROG} stops at its start; ran its compute half", flush=True)
+            metrics, _ = rollout_cli.rollout(cfg, dev)
         torch.cuda.synchronize()
         launches = coupling_fused.launches
         out = pathlib.Path(tmp) / "eval" / "backward-step"
         saved = json.loads((out / "rollout_metrics.json").read_text())
         with np.load(out / "rollout_stats.npz") as f:
             stats = {k: f[k] for k in f.files}
+        files = {p.name for p in out.iterdir()}
+    t_ref = cfg.data.train_steps
+    t_mid = t_ref // 2
     shape = (CLI_STEPS, *cfg.model.hf_shape, cfg.model.channels)
-    print(f"  {N_MEMBERS} members x {CLI_STEPS} steps (16 stored, wrap-tiled), learned tau "
+    # Warm-up and timed runs, then the samples grid's 8 members to t_mid + 1.
+    expected = per_step * (CLI_STEPS * 2 + t_mid + 1)
+    print(f"  {N_MEMBERS} members x {CLI_STEPS} steps ({t_ref} stored, wrap-tiled), learned tau "
           f"{saved['temperature']}: {saved['rollout_steps_per_sec']:.3f} steps/s (the CLI's "
-          f"timed run); K2 launches {launches} (expected {per_step} x {CLI_STEPS} x 2 runs)",
-          flush=True)
-    check(launches == per_step * CLI_STEPS * 2, "K2 launch count of the rollout CLI")
+          f"timed run); K2 launches {launches} (expected {per_step} x ({CLI_STEPS} x 2 runs + "
+          f"{t_mid + 1} samples-grid steps))", flush=True)
+    check(launches == expected, "K2 launch count of the rollout CLI")
+    if has_matplotlib():
+        figures = {f"pred_t{t:04d}_u.png" for t in (0, t_mid, t_ref - 1)} | {
+            "tke.png", "profiles_u.png", "probes_u.png", f"vorticity_t{t_ref - 1:04d}.png",
+            f"samples_t{t_mid:04d}_u.png"}
+        print(f"  figures written: {sorted(files & figures)}", flush=True)
+        check(figures <= files, f"rollout CLI figures (missing {sorted(figures - files)})")
     check(saved == metrics and set(saved) == {"rollout_steps_per_sec", "steps", "n_samples",
                                               "rollout_steps_per_sec_seconds", "temperature",
                                               "backend"}, "rollout_metrics.json keys")
@@ -1049,6 +1120,107 @@ def redraw_phase(cfg, dev, steps: int) -> dict:
             "steps_per_sec_off": rates[False], "steps_per_sec_on": rates[True]}
 
 
+def evaluate_phase(cfg, dev, overrides=()) -> dict:
+    """The evaluator at the backward-step preset: K2 against its plain
+    version at the batched rollout's B = traj_batch x n_samples, then
+    ``python -m tpuflow_torch.cli.evaluate`` in-process on a checkpoint in
+    the exporter's format holding the seeded init of "slice" (the "train"
+    phase's checkpoint overflows), over the preset's synthetic test split
+    (4 trajectories x 64 stored steps). K2 launches are counted over the
+    evaluator's run; the stage seconds are printed. ``overrides``
+    (key=value) shrink it for a rehearsal."""
+    import json
+    import tempfile
+
+    import torch
+
+    from tpuflow_torch.cli import evaluate as evaluate_cli
+    from tpuflow_torch.configs import load_case, parse_cli_overrides
+    from tpuflow_torch.data import load_dataset
+    from tpuflow_torch.eval.metrics import METRIC_KEYS, key_structure
+    from tpuflow_torch.kernels import coupling_fused
+    from tpuflow_torch.models import TMGlow, perturb_
+    from tpuflow_torch.train import Checkpointer
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        args = [*overrides, f"train.checkpoint_dir={tmp}", f"eval.output_dir={tmp}/eval"]
+        case = load_case("backward-step", parse_cli_overrides(args))
+        e = case.eval
+        if not overrides:
+            check(e.n_samples == 64 and e.traj_batch == 4 and e.calibration_steps == 32
+                  and e.ref_steps == 256, "the preset's eval section")
+        b = min(e.traj_batch, case.data.n_test_traj) * e.n_samples
+        t0 = time.perf_counter()
+        worst = k2_parity(case.model, dev, b)
+        print(f"  K2 vs plain at B = {b}: worst y err {worst:.3e} "
+              f"({time.perf_counter() - t0:.2f} s)", flush=True)
+        times = k2_times(case.model, dev, b)
+
+        model = TMGlow(case.model, device="cpu", seed=0)
+        perturb_(model, 1)
+        norm = load_dataset(case.data, case.model, "train").norm
+        Checkpointer(f"{tmp}/backward-step").save(1, {
+            "model": model.state_dict(),
+            "norm": {k: torch.from_numpy(v) for k, v in norm.to_dict().items()},
+            "meta": {"source": "chip_smoke.py seeded init"},
+        })
+        seconds: dict = {}
+        coupling_fused.launches = 0
+        t0 = time.perf_counter()
+        if has_matplotlib():
+            metrics = evaluate_cli.main(["backward-step", *args, "--device", dev.type], seconds)
+        else:
+            print(f"  figures: not drawn on the card: matplotlib is not installed here, so "
+                  f"{evaluate_cli.PROG} stops at its start; ran its compute half", flush=True)
+            metrics, _ = evaluate_cli.evaluate(case, dev, seconds)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = coupling_fused.launches
+        out = pathlib.Path(tmp) / "eval" / "backward-step"
+        saved = json.loads((out / "eval_metrics.json").read_text())
+        files = {p.name for p in out.iterdir()}
+
+    per_step = case.model.n_scales * case.model.n_flow_steps
+    T, n_traj = metrics["steps"], case.data.n_test_traj
+    t_cal = min(e.calibration_steps, T)
+    chunks = -(-n_traj // min(e.traj_batch, n_traj))
+    # Calibration rollouts: trajectory 0, each other fit trajectory twice
+    # (the fit, then the spectral chain's refit), each holdout one once.
+    n_fit, n_hold = len(range(0, n_traj, 2)), len(range(1, n_traj, 2))
+    cal_runs = 1 + 2 * (n_fit - 1) + n_hold
+    expected = per_step * (T + chunks * T + cal_runs * t_cal)
+    print(f"  {n_traj} trajectories x {e.n_samples} members, batches of {e.traj_batch} (K2 at "
+          f"B = {b}), {T} steps, calibration {t_cal} steps, reference {metrics['ref_steps']} "
+          f"steps: {elapsed:.2f} s; K2 launches {launches} (expected {per_step} x ({T} NLL + "
+          f"{chunks} x {T} batched + {cal_runs} x {t_cal} calibration))", flush=True)
+    print(f"  stage seconds ({SMI[0]}): " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()),
+          flush=True)
+    print(f"  test_bpd {metrics['test_bpd']:.4f}, field_rel_l2_mean "
+          f"{metrics['field_rel_l2_mean']:.4f}, crps_mean {metrics['crps_mean']:.5f}, "
+          f"spread_scale {metrics['spread_scale']:.4f}", flush=True)
+    check(launches == expected, "K2 launch count of the evaluator")
+    check(saved == metrics and key_structure(saved) == METRIC_KEYS,
+          "eval_metrics.json has the JAX evaluator's 102 keys and nesting")
+
+    def numbers(v):
+        if isinstance(v, dict):
+            return [x for u in v.values() for x in numbers(u)]
+        if isinstance(v, list):
+            return [x for u in v for x in numbers(u)]
+        return [] if isinstance(v, (str, bool)) else [v]
+
+    bad = [k for k, v in saved.items() if not all(math.isfinite(x) for x in numbers(v))]
+    check(not bad, f"every number of eval_metrics.json finite (not: {bad})")
+    check(saved["backend"] == dev.type, f"backend {saved['backend']!r}")
+    check(set(EVAL_ARTEFACTS) <= files, f"artefacts (have {sorted(files)})")
+    if has_matplotlib():
+        figures = {*EVAL_FIGURES, f"vorticity_t{T - 1:04d}.png"}
+        print(f"  figures written: {sorted(files & figures)}", flush=True)
+        check(figures <= files, f"evaluator figures (missing {sorted(figures - files)})")
+    return {"launches": launches, "seconds": elapsed, "stage_seconds": seconds,
+            "k2_parity_max_abs_err": worst, "k2_shapes": times}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=16,
@@ -1079,6 +1251,14 @@ def main() -> int:
         ).stdout.strip().splitlines()[0]
         print(f"  torch {torch.__version__} cuda {torch.version.cuda}; device {device_name}")
         print(smi, flush=True)
+        SMI[0] = smi
+        spec = importlib.util.find_spec("matplotlib")
+        if spec is None:
+            print("  matplotlib: not installed (importlib.util.find_spec returned None)")
+        else:
+            import matplotlib
+
+            print(f"  matplotlib {matplotlib.__version__} ({spec.origin})", flush=True)
 
     with phase("build"):
         sources = ("coupling_fused", "coupling_apply")
@@ -1146,11 +1326,15 @@ def main() -> int:
     with phase("redraw"):
         redraw = redraw_phase(cfg, dev, args.steps)
 
+    with phase("evaluate"):
+        evaluated = evaluate_phase(cfg, dev)
+
     k2["launches"] = launches
-    k2["max_abs_err"] = max(k2["max_abs_err"], cyl["max_abs_err"])
+    k2["max_abs_err"] = max(k2["max_abs_err"], cyl["max_abs_err"],
+                            evaluated.pop("k2_parity_max_abs_err"))
     k2["launches_by_path"] = {"rollout": launches, "train": train.pop("launches")}
     for name, res in (("rollout_cli", cli), ("cylinder", cyl), ("batched", batched),
-                      ("redraw", redraw)):
+                      ("redraw", redraw), ("evaluate", evaluated)):
         k2["launches_by_path"][name] = res.pop("launches")
         k2[name] = res
     k2["train"] = train

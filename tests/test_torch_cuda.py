@@ -1,9 +1,10 @@
 """The port's CUDA kernels on the card: the fused coupling (K2) against its
-plain version, the wrapper's refusals, a small rollout through the
-kernel against the same rollout on the CPU, the batched rollout against
-a loop of single-trajectory rollouts, K2 under autograd and a
-training window against the CPU; the coupling apply (K1) against its
-plain version, forward, reverse, gradients and determinism.
+plain version (at the evaluator's batch of 256 too), the wrapper's
+refusals, a small rollout through the kernel against the same rollout on
+the CPU, the batched rollout against a loop of single-trajectory
+rollouts, K2 under autograd and a training window against the CPU; the
+coupling apply (K1) against its plain version, forward, reverse,
+gradients and determinism.
 
 These tests need an NVIDIA GPU and ``nvcc`` and skip elsewhere (the CUDA
 kernel has no CPU or interpret mode). This file imports neither JAX nor
@@ -22,6 +23,10 @@ accumulate in f32, but a relu feature whose f32 sum lies near a bf16
 rounding boundary can round one ulp apart in the two summation orders.
 K1: the JAX package's tolerances (y 1e-6, logdet 1e-5, gradients 1e-5,
 each plus the same relative term), as its Pallas tests use.
+
+The evaluator's statistics and calibration maps (``eval/stats.py``,
+``eval/calibrate.py``) on CUDA tensors against the same functions on the
+CPU: 1e-5 relative, 1e-6 absolute near 0; histogram counts exact.
 """
 
 import numpy as np
@@ -30,7 +35,9 @@ import torch
 
 from tpuflow_torch.configs import ModelConfig, load_case
 from tpuflow_torch.device import resolve_device
+from tpuflow_torch.eval import calibrate as tcal
 from tpuflow_torch.eval import make_batched_ensemble_rollout, make_ensemble_rollout
+from tpuflow_torch.eval import stats as tstats
 from tpuflow_torch.kernels import coupling_apply as ka
 from tpuflow_torch.kernels import coupling_fused as tk
 from tpuflow_torch.kernels.coupling_apply import coupling_apply, coupling_apply_reference
@@ -156,6 +163,26 @@ def test_cuda_kernel_edge_shapes(cuda_device, shape, dtype, h0c_batch, reverse):
         assert tk.tile_plan(b, h, w, width, layers * growth + 2 * ca).rows * 2 == h
     if shape == EDGE_SHAPES[10]:
         assert h % tk.tile_plan(b, h, w, width, layers * growth + 2 * ca).rows != 0
+    _check_against_plain(cuda_device, shape, dtype, h0c_batch, reverse)
+
+
+# The evaluator's batched rollout: traj_batch 4 x 64 members = B 256 at the
+# backward-step preset's three scales.
+EVAL_SHAPES = [(256, 32, 64, 6, 6, 64, 32, 3), (256, 16, 32, 12, 12, 64, 32, 3),
+               (256, 8, 16, 24, 24, 64, 32, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("h0c_batch", [1, "B"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", EVAL_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_cuda_kernel_at_the_evaluator_batch(cuda_device, shape, dtype, h0c_batch, reverse):
+    _check_against_plain(cuda_device, shape, dtype, h0c_batch, reverse)
+
+
+def _check_against_plain(cuda_device, shape, dtype, h0c_batch, reverse):
+    b, h, w, ca, cb, width, growth, layers = shape
     tol_y, tol_ld = _TOL[dtype]
     xa, xb, h0c, net = _lecun_case(cuda_device, _DT[dtype], *shape, h0c_batch, seed=sum(shape))
     before = tk.launches
@@ -405,3 +432,67 @@ def test_cuda_k1_storage_offsets_and_hwnc(cuda_device, case, reverse):
     torch.testing.assert_close(y, y_ref, atol=1e-6, rtol=1e-6)
     torch.testing.assert_close(ld, ld_ref, atol=1e-5, rtol=1e-6)
     assert torch.equal(y, y2) and torch.equal(ld, ld2)
+
+
+def _on_both(cuda_device, fn, *args, **kw):
+    """fn on CUDA copies of the tensor arguments and on the CPU ones."""
+    dev = [a.to(cuda_device) if isinstance(a, torch.Tensor) else a for a in args]
+    return fn(*dev, **kw), fn(*args, **kw)
+
+
+def _close_cpu(got, want, rtol=1e-5, atol=1e-6):
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    for g, w in zip(got, want):
+        assert g.is_cuda
+        torch.testing.assert_close(g.cpu(), w, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("taper", [False, True])
+@pytest.mark.parametrize("domain", [None, (1.0, 4.0)])
+def test_cuda_energy_spectrum_matches_cpu(cuda_device, taper, domain):
+    x = _np(np.random.default_rng(90), (64, 8, 64, 128, 2))
+    _close_cpu(*_on_both(cuda_device, tstats.energy_spectrum, x, domain, taper))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bins,lo,hi", [(64, -3.0, 3.0), (10, 0.0, 1.0)])
+def test_cuda_histogram_matches_cpu(cuda_device, bins, lo, hi):
+    """Counts exact, values on the edges included."""
+    x = torch.cat([_np(np.random.default_rng(91), (1 << 20,)),
+                   tstats.histogram(torch.zeros(1), bins, lo, hi)[1]])
+    (gd, ge, gc), (cd, ce, cc) = _on_both(cuda_device, tstats.histogram, x, bins, lo, hi)
+    assert torch.equal(ge.cpu(), ce) and torch.equal(gc.cpu(), cc)
+    _close_cpu(gd, cd)
+    _close_cpu(*_on_both(cuda_device, tstats.fluctuation_pdf, x))
+
+
+@pytest.mark.cuda
+def test_cuda_large_quantile_matches_cpu(cuda_device):
+    """Above 2^24 values (torch.quantile's limit): the evaluator's W1 pools
+    64 members x 32 steps x 64 x 128 = 2^24 values per channel."""
+    x = _np(np.random.default_rng(92), (2**24 + 3,))
+    q = [0.0, 1e-7, 0.25, 0.5, 0.9, 1.0]
+    _close_cpu(*_on_both(cuda_device, tstats.quantile, x, q))
+    b = _np(np.random.default_rng(93), (4096,), 1.3)
+    _close_cpu(*_on_both(cuda_device, tstats.wasserstein1, x, b))
+
+
+@pytest.mark.cuda
+def test_cuda_crps_and_coverage_match_cpu(cuda_device):
+    rng = np.random.default_rng(94)
+    members, ref = _np(rng, (64, 4, 64, 128, 3)), _np(rng, (4, 64, 128, 3), 1.5)
+    _close_cpu(*_on_both(cuda_device, tstats.ensemble_crps, members, ref))
+    _close_cpu(*_on_both(cuda_device, tstats.ensemble_coverage, members, ref))
+
+
+@pytest.mark.cuda
+def test_cuda_stratified_quantile_map_matches_cpu(cuda_device):
+    rng = np.random.default_rng(95)
+    pred, ref = _np(rng, (128, 20000), 1.2), _np(rng, (128, 5000), 0.9)
+    fit_g, fit_c = _on_both(cuda_device, tcal.fit_quantile_map_stratified, pred, ref)
+    _close_cpu(fit_g, fit_c)
+    vals = _np(rng, (128, 64, 8, 64), 2.0)
+    got = tcal.apply_quantile_map_stratified(vals.to(cuda_device), *fit_g)
+    _close_cpu(got, tcal.apply_quantile_map_stratified(vals, *fit_c), atol=1e-5)

@@ -2,6 +2,7 @@
 
     python -m tpuflow_torch.cli.train <case> [key=value ...] [--device cuda|cpu]
     python -m tpuflow_torch.cli.rollout <case> [key=value ...] [--device cuda|cpu]
+    python -m tpuflow_torch.cli.evaluate <case> [key=value ...] [--device cuda|cpu]
 
 The positional argument selects a case preset (``configs/cases``);
 trailing ``key=value`` pairs override any config field by dotted path
@@ -12,6 +13,7 @@ trailing ``key=value`` pairs override any config field by dotted path
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import sys
 
 from tpuflow_torch.configs.config import CaseConfig, case_names, load_case, parse_cli_overrides
@@ -28,3 +30,14 @@ def parse_args(argv: list[str] | None = None, prog: str = "tpuflow_torch") -> tu
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_intermixed_args(sys.argv[1:] if argv is None else argv)
     return load_case(args.case, parse_cli_overrides(args.overrides)), args.device
+
+
+def require_matplotlib(prog: str) -> None:
+    """Stop with a message when matplotlib, which draws the figures of the
+    rollout and evaluation CLIs, is not installed."""
+    if importlib.util.find_spec("matplotlib") is None:
+        raise SystemExit(
+            f"{prog}: matplotlib is not installed; it draws this command's figures. "
+            "Install it, or call the compute half without figures "
+            "(tpuflow_torch.cli.rollout.rollout / tpuflow_torch.cli.evaluate.evaluate)."
+        )

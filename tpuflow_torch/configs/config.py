@@ -97,6 +97,11 @@ class DataConfig:
     device_resident: bool = True
     device_resident_max_gb: float = 4.0
     seed: int = 0
+    # Physical domain extents (x, y) of the structured grid; both cases
+    # use a 4x1 domain. They set the grid spacings of the evaluator's
+    # vorticity and divergence and the wavenumbers of its spectra.
+    domain_x: float = 4.0
+    domain_y: float = 1.0
 
 
 @dataclass(frozen=True)
@@ -121,8 +126,7 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class EvalConfig:
-    """The fields of the JAX package's ``EvalConfig`` that the rollout and
-    its CLI read, with its defaults."""
+    """The JAX package's ``EvalConfig``, with its defaults."""
 
     n_samples: int = 64
     rollout_steps: int = 100
@@ -134,6 +138,14 @@ class EvalConfig:
     # learned_tau > scalar).
     temperature_scales: str = ""
     output_dir: str = "./eval_out"
+    # torch.profiler trace directory for the rollout CLI's timed run and
+    # the evaluator's batched rollout ("" = off).
+    trace_dir: str = ""
+    # Exact-calibration horizon: a fields-mode rollout of this many steps
+    # per test trajectory feeds the evaluator's ensemble CRPS, interval
+    # coverage, spectra and calibration fits (0 = skip; memory is
+    # O(T*N*H*W*C)).
+    calibration_steps: int = 32
     # Post-hoc UQ spread inflation: rollout stats report
     # var * spread_scale**2; 1.0 = raw ensemble dispersion.
     spread_scale: float = 1.0
@@ -145,6 +157,15 @@ class EvalConfig:
     # redraw failed ensemble members once at 0.6x temperature, then
     # zero-fill. The check waits on the device every step, so default off.
     overflow_redraw: bool = False
+    # Reference horizon of the evaluator's variance-derived statistics
+    # (TKE, Reynolds stress, fluctuation PDFs) on synthetic data: when
+    # above the rollout horizon, the generator extends each test
+    # trajectory to this many steps and the references use the converged
+    # temporal statistics. 0 = the rollout horizon. Ignored for archives.
+    ref_steps: int = 0
+    # Trajectories per batched rollout in the evaluator: bounds peak
+    # activation memory at traj_batch * n_samples members.
+    traj_batch: int = 4
     # Evaluating with no checkpoint is an error by default: a typo'd
     # checkpoint_dir would otherwise silently evaluate an untrained
     # model. Set true only for explicit untrained smoke rollouts.

@@ -19,9 +19,16 @@ import pathlib
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from tpuflow_torch.configs.config import DataConfig, ModelConfig
 from tpuflow_torch.data.synthetic import generate_case
+
+
+def _like(c: np.ndarray, x):
+    """A per-channel constant in ``x``'s kind: as it is for NumPy, a tensor
+    on x's device for a tensor."""
+    return torch.as_tensor(c, dtype=x.dtype, device=x.device) if isinstance(x, torch.Tensor) else c
 
 
 @dataclass(frozen=True)
@@ -74,19 +81,20 @@ class TrajectoryDataset:
     def n_steps(self) -> int:
         return self.lf.shape[1]
 
-    def denorm_hf(self, x: np.ndarray) -> np.ndarray:
-        """Normalized HF field -> physical units (affine)."""
-        return x * self.norm.hf_std + self.norm.hf_mean
+    def denorm_hf(self, x):
+        """Normalized HF field -> physical units (affine); NumPy arrays or
+        tensors (computed on their device)."""
+        return x * _like(self.norm.hf_std, x) + _like(self.norm.hf_mean, x)
 
-    def denorm_hf_var(self, var: np.ndarray) -> np.ndarray:
+    def denorm_hf_var(self, var):
         """Normalized HF variance -> physical units: a variance scales by
         sigma^2 and takes no mean shift (denorm_hf on a variance would add
         the mean flow to the TKE)."""
-        return var * self.norm.hf_std**2
+        return var * _like(self.norm.hf_std**2, var)
 
-    def denorm_lf(self, x: np.ndarray) -> np.ndarray:
+    def denorm_lf(self, x):
         """Normalized LF field -> physical units (affine)."""
-        return x * self.norm.lf_std + self.norm.lf_mean
+        return x * _like(self.norm.lf_std, x) + _like(self.norm.lf_mean, x)
 
     def batch_indices(self, seed: int, batch_size: int, drop_remainder: bool = True):
         """Yield shuffled trajectory-index batches: the one source of an
