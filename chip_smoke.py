@@ -38,7 +38,14 @@ and read just after:
     at the backward-step preset (64 members, 4 trajectories per batched
     rollout, so K2 runs at B = 256, 32 calibration steps, 256 reference
     steps) on a checkpoint in the exporter's format, after K2 is held
-    against its plain version at B = 256 (phase "evaluate").
+    against its plain version at B = 256 (phase "evaluate");
+  * the sample-path fine-tune, ``python -m tpuflow_torch.tools.finetune``,
+    in-process at the flagship's recipe on the "train" phase's fixture
+    from an exporter-format file of the seeded init: K2 forward at B = 4
+    and reverse at B = 24 under autograd, held against the plain version
+    in one f32 window and timed alone; the output's learned tau served by
+    the rollout CLI's compute half; remat's peak memory and seconds
+    (phase "finetune").
 
 The rollout CLI and the evaluator draw their figures when matplotlib is
 installed, and the phases check the files; without it they run the
@@ -130,6 +137,17 @@ EVAL_FIGURES = ("nll_curve.png", "energy_spectrum.png", "reliability.png",
                 "fluctuation_pdf.png", "reliability_holdout.png", "tke.png")
 EVAL_ARTEFACTS = ("eval_metrics.json", "spread_field.npy", "spectral_filter.npz",
                   "quantile_map.npz")
+# The fine-tune phase: the flagship's recipe (runs/r5_v3_deep_ft meta
+# "finetune": 6 members, lambdas 0.3 / 0.02 / 0.5, scope nets, lr 1e-5),
+# batch 4, a learned tau, bf16 nets, over the "train" phase's fixture
+# (TRAIN_ARGS: 8 trajectories x 16 steps, window 8) for 2 epochs: 2
+# batches x 2 windows each. Cut: eval.ref_steps 256 -> 64 (the spectral
+# targets' converged references, NumPy on the host).
+FT_ARGS = ["finetune.lambda_crps=0.3", "finetune.lambda_spec=0.02",
+           "finetune.lambda_disp=0.5", "finetune.train_scope=nets", "finetune.lr=1e-5",
+           "finetune.n_members=6", "finetune.batch_size=4", "finetune.learn_tau=true",
+           "finetune.epochs=2", "eval.ref_steps=64"]
+FT_SERVE_STEPS = 16
 
 
 @contextlib.contextmanager
@@ -328,13 +346,14 @@ def k2_parity(cfg, dev, b, gen=None) -> float:
     return worst
 
 
-def k2_times(cfg, dev, b, gen=None) -> list[dict]:
+def k2_times(cfg, dev, b, gen=None, reverse=True) -> list[dict]:
     """K2 at the rollout's configuration (bf16 nets, reverse, the
-    conditioning batched over the ``b`` members) at the three scales'
-    shapes: device time per launch from a CUDA graph of 20 launches (back-
-    to-back eager calls would also hold the host's ~0.1 ms per call), the
-    eager time beside it, its bound, the plain version's time and cuDNN's
-    five bf16 convs (a yardstick the port never calls)."""
+    conditioning batched over the ``b`` members; ``reverse=False``: the
+    NLL forward's) at the three scales' shapes: device time per launch
+    from a CUDA graph of 20 launches (back-to-back eager calls would also
+    hold the host's ~0.1 ms per call), the eager time beside it, its
+    bound, the plain version's time and cuDNN's five bf16 convs (a
+    yardstick the port never calls)."""
     import torch
 
     from tpuflow_torch.kernels.coupling_fused import fused_coupling, fused_coupling_reference
@@ -348,16 +367,17 @@ def k2_times(cfg, dev, b, gen=None) -> list[dict]:
         ca = c // 2
         xa, xb, h0c, net = random_coupling(b, h, w, ca, width, growth, layers,
                                            torch.bfloat16, b, gen, dev)
-        ms = time_graph_ms(lambda: fused_coupling(xa, xb, h0c, net, reverse=True), 20)
-        eager_ms = time_ms(lambda: fused_coupling(xa, xb, h0c, net, reverse=True), 20)
+        ms = time_graph_ms(lambda: fused_coupling(xa, xb, h0c, net, reverse=reverse), 20)
+        eager_ms = time_ms(lambda: fused_coupling(xa, xb, h0c, net, reverse=reverse), 20)
         plain_ms = time_graph_ms(
-            lambda: fused_coupling_reference(xa, xb, h0c, net, reverse=True), 20)
+            lambda: fused_coupling_reference(xa, xb, h0c, net, reverse=reverse), 20)
         chain_ms = cudnn_chain_ms(b, h, w, ca, width, growth, layers, dev)
         bound_ms, bound_by, flops, nbytes = k2_bound(xa, xb, h0c, net, growth, layers)
-        shapes.append(dict(scale=l, shape=[b, h, w, ca], ms=ms, eager_ms=eager_ms,
-                           plain_ms=plain_ms, cudnn_chain_ms=chain_ms, bound_ms=bound_ms,
+        shapes.append(dict(scale=l, shape=[b, h, w, ca], reverse=reverse, ms=ms,
+                           eager_ms=eager_ms, plain_ms=plain_ms, cudnn_chain_ms=chain_ms, bound_ms=bound_ms,
                            bound_by=bound_by, gflop=flops / 1e9, mbytes=nbytes / 1e6))
-        print(f"  scale {l} K2 at B = {b}: {ms:.5f} ms/launch in a graph, {eager_ms:.5f} eager "
+        print(f"  scale {l} K2 {'reverse' if reverse else 'forward'} at B = {b}: {ms:.5f} "
+              f"ms/launch in a graph, {eager_ms:.5f} eager "
               f"(bound {bound_ms:.5f} ms by {bound_by}, {flops / 1e9:.2f} GFLOP, "
               f"{nbytes / 1e6:.1f} MB, {100 * bound_ms / ms:.1f}% of the bound reached); plain "
               f"version {plain_ms:.4f} ms (not a yardstick); cuDNN's five bf16 convs "
@@ -422,6 +442,27 @@ def sass_count(lib, kernel: str, opcode: str) -> dict[str, int] | None:
         elif fn in counts and re.search(opcode, line):
             counts[fn] += 1
     return counts
+
+
+def seeded_source(case, path, **meta) -> None:
+    """Write, under ``path``, a checkpoint in ``tools/export_to_torch.py``'s
+    format ("model", "norm", "meta"; no optimizer state) holding the seeded
+    init of "slice" (perturbed by 0.004) and the normalization of the
+    case's training split; ``meta`` adds to its meta."""
+    import torch
+
+    from tpuflow_torch.data import load_dataset
+    from tpuflow_torch.models import TMGlow, perturb_
+    from tpuflow_torch.train import Checkpointer
+
+    model = TMGlow(case.model, device="cpu", seed=0)
+    perturb_(model, 1)
+    norm = load_dataset(case.data, case.model, "train").norm
+    Checkpointer(path).save(1, {
+        "model": model.state_dict(),
+        "norm": {k: torch.from_numpy(v) for k, v in norm.to_dict().items()},
+        "meta": {"source": "chip_smoke.py seeded init", **meta},
+    })
 
 
 def slice_phase(cfg, dev, steps: int):
@@ -869,10 +910,7 @@ def rollout_cli_phase(dev, overrides=()) -> dict:
 
     from tpuflow_torch.cli import rollout as rollout_cli
     from tpuflow_torch.configs import load_case, parse_cli_overrides
-    from tpuflow_torch.data import load_dataset
     from tpuflow_torch.kernels import coupling_fused
-    from tpuflow_torch.models import TMGlow, perturb_
-    from tpuflow_torch.train import Checkpointer
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
         args = [*TRAIN_ARGS, *overrides, f"train.checkpoint_dir={tmp}",
@@ -881,14 +919,7 @@ def rollout_cli_phase(dev, overrides=()) -> dict:
         cfg = load_case("backward-step", parse_cli_overrides(args))
         check(cfg.eval.rollout_steps > cfg.data.train_steps,
               "the CLI run wrap-tiles its LF input")
-        model = TMGlow(cfg.model, device="cpu", seed=0)
-        perturb_(model, 1)
-        norm = load_dataset(cfg.data, cfg.model, "train").norm
-        Checkpointer(f"{tmp}/backward-step").save(1, {
-            "model": model.state_dict(),
-            "norm": {k: torch.from_numpy(v) for k, v in norm.to_dict().items()},
-            "meta": {"learned_tau": list(CLI_TAU), "source": "chip_smoke.py seeded init"},
-        })
+        seeded_source(cfg, f"{tmp}/backward-step", learned_tau=list(CLI_TAU))
         per_step = cfg.model.n_scales * cfg.model.n_flow_steps
 
         coupling_fused.launches = 0
@@ -1136,11 +1167,8 @@ def evaluate_phase(cfg, dev, overrides=()) -> dict:
 
     from tpuflow_torch.cli import evaluate as evaluate_cli
     from tpuflow_torch.configs import load_case, parse_cli_overrides
-    from tpuflow_torch.data import load_dataset
     from tpuflow_torch.eval.metrics import METRIC_KEYS, key_structure
     from tpuflow_torch.kernels import coupling_fused
-    from tpuflow_torch.models import TMGlow, perturb_
-    from tpuflow_torch.train import Checkpointer
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
         args = [*overrides, f"train.checkpoint_dir={tmp}", f"eval.output_dir={tmp}/eval"]
@@ -1156,14 +1184,7 @@ def evaluate_phase(cfg, dev, overrides=()) -> dict:
               f"({time.perf_counter() - t0:.2f} s)", flush=True)
         times = k2_times(case.model, dev, b)
 
-        model = TMGlow(case.model, device="cpu", seed=0)
-        perturb_(model, 1)
-        norm = load_dataset(case.data, case.model, "train").norm
-        Checkpointer(f"{tmp}/backward-step").save(1, {
-            "model": model.state_dict(),
-            "norm": {k: torch.from_numpy(v) for k, v in norm.to_dict().items()},
-            "meta": {"source": "chip_smoke.py seeded init"},
-        })
+        seeded_source(case, f"{tmp}/backward-step")
         seconds: dict = {}
         coupling_fused.launches = 0
         t0 = time.perf_counter()
@@ -1219,6 +1240,238 @@ def evaluate_phase(cfg, dev, overrides=()) -> dict:
         check(figures <= files, f"evaluator figures (missing {sorted(figures - files)})")
     return {"launches": launches, "seconds": elapsed, "stage_seconds": seconds,
             "k2_parity_max_abs_err": worst, "k2_shapes": times}
+
+
+def finetune_parity_phase(case, dev, b=4, m=6) -> dict:
+    """One f32 fine-tune window of 2 timesteps at full width, B = ``b``,
+    ``m`` members, every lambda nonzero: K2 forward at B and reverse at
+    B x M under autograd, against the same window with the plain version
+    swapped in for the kernel (same weights, data and draws). The loss
+    to TRAIN_TOL_LOSS relative, every gradient and log_tau's to
+    TRAIN_TOL_GRAD x max(1, max|g|)."""
+    import dataclasses
+
+    import torch
+
+    from tpuflow_torch.data import load_dataset
+    from tpuflow_torch.kernels import coupling_fused
+    from tpuflow_torch.models import TMGlow, init_lstm_state, perturb_
+    from tpuflow_torch.train import finetune
+
+    mcfg = dataclasses.replace(case.model, compute_dtype="float32")
+    ds = load_dataset(dataclasses.replace(case.data, n_train_traj=b, train_steps=2), mcfg)
+    lf, hf = torch.from_numpy(ds.lf).to(dev), torch.from_numpy(ds.hf).to(dev)
+    spec = torch.stack([finetune.converged_log_spectra(hf[i]) for i in range(b)])
+    model = TMGlow(mcfg, device=dev, seed=0)
+    perturb_(model, 1)
+    draws = finetune.window_draws(model, b, m, 2, torch.Generator(dev).manual_seed(21))
+    loss_fn = finetune.make_finetune_loss(model, m)
+
+    def window():
+        model.zero_grad(set_to_none=True)
+        lt = torch.log(torch.full((mcfg.n_scales,), 0.85, device=dev)).requires_grad_()
+        loss, aux = loss_fn(lt, lf, hf, spec, init_lstm_state(mcfg, b, dev), 0.3, 0.02, 0.5,
+                            draws)
+        loss.backward()
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+        grads["log_tau"] = lt.grad.clone()
+        return loss.item(), {k: aux[k].item() for k in ("bpd", "crps", "spec", "disp")}, grads
+
+    before = coupling_fused.launches
+    loss_k, aux_k, g_k = window()
+    per_step = mcfg.n_scales * mcfg.n_flow_steps
+    launched = coupling_fused.launches - before
+    check(launched == 2 * 2 * per_step, f"kernel window launched K2 forward and reverse "
+          f"({launched}, expected {2 * 2 * per_step})")
+    kernel = coupling_fused.fused_coupling
+    coupling_fused.fused_coupling = coupling_fused.fused_coupling_reference
+    try:
+        loss_p, aux_p, g_p = window()
+    finally:
+        coupling_fused.fused_coupling = kernel
+    err_loss = abs(loss_k - loss_p) / max(1.0, abs(loss_p))
+    errs = sorted(((g_k[n] - gp).abs().max().item() / max(1.0, gp.abs().max().item()), n)
+                  for n, gp in g_p.items())
+    worst = errs[-1][0]
+    print(f"  f32 fine-tune window (B = {b}, {m} members, 2 steps), kernel vs plain: loss "
+          f"{loss_k:.6f} vs {loss_p:.6f} (rel err {err_loss:.3e}, tol {TRAIN_TOL_LOSS}); terms "
+          + ", ".join(f"{k} {aux_k[k]:.5f}/{aux_p[k]:.5f}" for k in aux_k)
+          + f"; gradient err x max(1, max|g|) (tol {TRAIN_TOL_GRAD}), log_tau "
+          f"{dict((n, e) for e, n in errs)['log_tau']:.3e}, worst of {len(errs)} tensors: "
+          + ", ".join(f"{n} {e:.3e}" for e, n in errs[:-4:-1]), flush=True)
+    check(all(math.isfinite(v) for v in (loss_k, loss_p)), "finite fine-tune loss")
+    check(err_loss <= TRAIN_TOL_LOSS and worst <= TRAIN_TOL_GRAD,
+          "f32 fine-tune window, kernel vs plain")
+    return {"loss_rel_err": err_loss, "grad_rel_err": worst}
+
+
+def remat_phase(case, dev, b=4, m=6) -> dict:
+    """One fine-tune window (batch ``b``, ``m`` members, 8 steps) and one
+    training window (batch 8, 8 steps) at full width, bf16 nets, remat
+    off then on: peak device memory and seconds of each (a warm-up window
+    first), and the losses, which must agree to TRAIN_TOL_LOSS relative."""
+    import dataclasses
+
+    import torch
+
+    from tpuflow_torch.data import load_dataset
+    from tpuflow_torch.models import TMGlow, init_lstm_state, perturb_
+    from tpuflow_torch.train import finetune, window_bpd_fn
+
+    cfg, w = case.model, case.data.window
+    ds = load_dataset(dataclasses.replace(case.data, n_train_traj=8, train_steps=w), cfg)
+    lf, hf = torch.from_numpy(ds.lf).to(dev), torch.from_numpy(ds.hf).to(dev)
+    spec = torch.stack([finetune.converged_log_spectra(hf[i]) for i in range(b)])
+    model = TMGlow(cfg, device=dev, seed=0)
+    perturb_(model, 1)
+
+    def ft_window(remat):
+        lt = torch.log(torch.full((cfg.n_scales,), 0.85, device=dev)).requires_grad_()
+        loss, _ = finetune.make_finetune_loss(model, m, remat)(
+            lt, lf[:b], hf[:b], spec, init_lstm_state(cfg, b, dev), 0.3, 0.02, 0.5,
+            torch.Generator(dev).manual_seed(22))
+        loss.backward()
+        return loss
+
+    def train_window(remat):
+        loss, _ = window_bpd_fn(model, remat)(lf, hf, init_lstm_state(cfg, 8, dev))
+        loss.backward()
+        return loss
+
+    out = {}
+    for name, fn in (("finetune", ft_window), ("train", train_window)):
+        fn(False)  # warm-up: cuDNN plans, the allocator
+        res = {}
+        for remat in (False, True):
+            model.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            loss = fn(remat).item()
+            torch.cuda.synchronize()
+            res[remat] = dict(loss=loss, seconds=time.perf_counter() - t0,
+                              peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                              base_gib=base / 2**30)
+        off, on = res[False], res[True]
+        rel = abs(on["loss"] - off["loss"]) / max(1.0, abs(off["loss"]))
+        print(f"  {name} window (batch {b if name == 'finetune' else 8} x {w} steps"
+              f"{f', {m} members' if name == 'finetune' else ''}, bf16): remat off "
+              f"{off['seconds']:.3f} s, peak {off['peak_gib']:.3f} GiB; remat on "
+              f"{on['seconds']:.3f} s, peak {on['peak_gib']:.3f} GiB (model and data "
+              f"{off['base_gib']:.3f} GiB before the window); loss {off['loss']:.6f} / "
+              f"{on['loss']:.6f} (rel diff {rel:.2e}, tol {TRAIN_TOL_LOSS}) [{SMI[0]}]",
+              flush=True)
+        check(math.isfinite(off["loss"]) and rel <= TRAIN_TOL_LOSS, f"{name} loss with remat")
+        out[name] = {"off": off, "on": on}
+    return out
+
+
+def finetune_phase(case, dev, overrides=()) -> dict:
+    """The fine-tune path: K2 held against its plain version (f32 window
+    under autograd; bf16 alone at B = 4 and 24) and timed at the NLL
+    forward's B = 4 and the members' B = 24; then ``python -m
+    tpuflow_torch.tools.finetune`` in-process at the flagship's recipe
+    (FT_ARGS) from an exporter-format file of the seeded init, K2
+    launches counted over the run; its output served by the rollout CLI's
+    compute half with the learned tau; remat off against on.
+    ``overrides`` (key=value) shrink it for a rehearsal."""
+    import csv
+    import json
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpuflow_torch.cli import rollout as rollout_cli
+    from tpuflow_torch.configs import load_case, parse_cli_overrides
+    from tpuflow_torch.eval.loading import load_eval_bundle, resolve_temperature
+    from tpuflow_torch.kernels import coupling_fused
+    from tpuflow_torch.tools import finetune as finetune_tool
+
+    res: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ft_") as tmp:
+        args = [*TRAIN_ARGS, *FT_ARGS, *overrides, f"train.checkpoint_dir={tmp}/src",
+                f"finetune.checkpoint_dir={tmp}/ft"]
+        cfg = load_case("backward-step", parse_cli_overrides(args))
+        ft, d = cfg.finetune, cfg.data
+        b, m = ft.batch_size, ft.n_members
+        res.update(finetune_parity_phase(cfg, dev, b, m))
+        worst = max(k2_parity(cfg.model, dev, bb) for bb in (b, b * m))
+        print(f"  K2 vs plain at B = {b} and {b * m}: worst y err {worst:.3e}", flush=True)
+        res["k2_parity_max_abs_err"] = worst
+        res["k2_forward"] = k2_times(cfg.model, dev, b, reverse=False)
+        res["k2_reverse"] = k2_times(cfg.model, dev, b * m)
+
+        seeded_source(cfg, f"{tmp}/src/backward-step")
+        per_step = cfg.model.n_scales * cfg.model.n_flow_steps
+        n_batches = -(-d.n_train_traj // b)
+        win_per_epoch = n_batches * (d.train_steps // d.window)
+        n_windows = ft.epochs * win_per_epoch
+        # Per timestep: the NLL forward at B and the reverse at B x M.
+        expected = 2 * per_step * d.window * n_windows * (2 if ft.remat else 1)
+        coupling_fused.launches = 0
+        t0 = time.perf_counter()
+        summary = finetune_tool.main(["backward-step", *args, "--device", dev.type])
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = coupling_fused.launches
+        with open(f"{tmp}/ft/backward-step_finetune_log.csv") as f:
+            rows = list(csv.DictReader(f))
+        epoch_s = [float(r["seconds"]) for r in rows]
+        skipped = [int(float(r["skipped_windows"])) for r in rows]
+        print(f"  {n_windows} windows ({ft.epochs} epochs x {n_batches} batches of {b} x "
+              f"{d.train_steps // d.window} windows of {d.window} steps, {m} members, lambdas "
+              f"{ft.lambda_crps} / {ft.lambda_spec} / {ft.lambda_disp}, scope "
+              f"{ft.train_scope}, lr {ft.lr}): {elapsed:.2f} s with set-up; K2 launches "
+              f"{launches} (expected 2 x {per_step} x {d.window} x {n_windows})", flush=True)
+        print("  per epoch (loss, bpd, crps, spec, disp, grad norm, skipped windows, s): "
+              + "; ".join(f"({r['loss']}, {r['bpd']}, {r['crps']}, {r['spec']}, {r['disp']}, "
+                          f"{r['grad_norm']}, {r['skipped_windows']}, {r['seconds']})"
+                          for r in rows), flush=True)
+        rates = [win_per_epoch / s for s in epoch_s if s > 0]
+        print(f"  fine-tune windows/s by the tool's epoch seconds: "
+              f"{' / '.join(f'{r:.3f}' for r in rates)}; by the host clock over the whole run "
+              f"(set-up included): {n_windows / elapsed:.3f} [{SMI[0]}]", flush=True)
+        print(f"  skipped windows: {sum(skipped)} of {n_windows}; learned tau "
+              f"{summary['learned_tau']}", flush=True)
+        check(launches == expected, "K2 launch count of the fine-tune")
+        check(len(rows) == ft.epochs and sum(skipped) < n_windows
+              and all(math.isfinite(float(r["loss"])) for r in rows),
+              "a finite loss in at least one fine-tune window")
+        tau = summary["learned_tau"]
+        check(len(tau) == 3 and all(0.0 < t <= 1.1 for t in tau), f"learned tau {tau}")
+
+        serve = [*TRAIN_ARGS, *overrides, f"train.checkpoint_dir={tmp}/ft",
+                 f"eval.rollout_steps={FT_SERVE_STEPS}", f"eval.n_samples={N_MEMBERS}",
+                 f"eval.output_dir={tmp}/eval"]
+        scfg = load_case("backward-step", parse_cli_overrides(serve))
+        _, _, meta = load_eval_bundle(scfg, device=dev)
+        deployed = resolve_temperature(scfg, meta, device=dev).tolist()
+        coupling_fused.launches = 0
+        metrics, _ = rollout_cli.rollout(scfg, dev)
+        torch.cuda.synchronize()
+        serve_launches = coupling_fused.launches
+        out = pathlib.Path(tmp) / "eval" / "backward-step"
+        with np.load(out / "rollout_stats.npz") as f:
+            stats = {k: f[k] for k in f.files}
+        saved = json.loads((out / "rollout_metrics.json").read_text())
+        print(f"  served ({N_MEMBERS} members x {FT_SERVE_STEPS} steps, the rollout CLI's "
+              f"compute half): tau {saved['temperature']}, "
+              f"{saved['rollout_steps_per_sec']:.3f} steps/s, K2 launches {serve_launches}; "
+              f"stats finite {all(bool(np.isfinite(v).all()) for v in stats.values())}",
+              flush=True)
+        check(all(abs(a - t) < 1e-6 for a, t in zip(deployed, tau))
+              and all(abs(a - t) < 1e-6 for a, t in zip(saved["temperature"], tau)),
+              "the rollout deploys the learned tau")
+        check(set(stats) == {"mean", "var"} and all(bool(np.isfinite(v).all())
+                                                    for v in stats.values()),
+              "finite stats of the fine-tuned checkpoint")
+    res["remat"] = remat_phase(cfg, dev, b, m)
+    res.update(launches=launches, windows=n_windows, seconds=elapsed, epoch_seconds=epoch_s,
+               windows_per_sec=rates, windows_per_sec_host=n_windows / elapsed,
+               skipped_windows=sum(skipped), learned_tau=tau, serve_launches=serve_launches)
+    return res
 
 
 def main() -> int:
@@ -1329,12 +1582,16 @@ def main() -> int:
     with phase("evaluate"):
         evaluated = evaluate_phase(cfg, dev)
 
+    with phase("finetune"):
+        finetuned = finetune_phase(case, dev)
+
     k2["launches"] = launches
     k2["max_abs_err"] = max(k2["max_abs_err"], cyl["max_abs_err"],
-                            evaluated.pop("k2_parity_max_abs_err"))
+                            evaluated.pop("k2_parity_max_abs_err"),
+                            finetuned.pop("k2_parity_max_abs_err"))
     k2["launches_by_path"] = {"rollout": launches, "train": train.pop("launches")}
     for name, res in (("rollout_cli", cli), ("cylinder", cyl), ("batched", batched),
-                      ("redraw", redraw), ("evaluate", evaluated)):
+                      ("redraw", redraw), ("evaluate", evaluated), ("finetune", finetuned)):
         k2["launches_by_path"][name] = res.pop("launches")
         k2[name] = res
     k2["train"] = train

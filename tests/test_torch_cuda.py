@@ -3,8 +3,10 @@ plain version (at the evaluator's batch of 256 too), the wrapper's
 refusals, a small rollout through the kernel against the same rollout on
 the CPU, the batched rollout against a loop of single-trajectory
 rollouts, K2 under autograd and a training window against the CPU; the
-coupling apply (K1) against its plain version, forward, reverse,
-gradients and determinism.
+fine-tune (K2 forward and reverse under autograd, at the members' batch
+too) against the CPU and with remat against without; the coupling apply
+(K1) against its plain version, forward, reverse, gradients and
+determinism.
 
 These tests need an NVIDIA GPU and ``nvcc`` and skip elsewhere (the CUDA
 kernel has no CPU or interpret mode). This file imports neither JAX nor
@@ -49,6 +51,7 @@ from tpuflow_torch.kernels.coupling_fused import (
 )
 from tpuflow_torch.models import TMGlow, init_lstm_state, latent_shapes, perturb_
 from tpuflow_torch.train import Trainer, window_bpd_fn
+from tpuflow_torch.train import finetune as tft
 
 torch.set_num_threads(1)
 
@@ -342,6 +345,97 @@ def test_cuda_trainer_launches_k2_and_resumes(cuda_device, tmp_path):
     t2.init_or_resume()
     assert t2.epoch == 1
     assert t2.run()["epoch"] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_k2_reverse_autograd_at_member_batch(cuda_device):
+    """K2 in reverse under autograd at B = 24, the fine-tune's members
+    (4 trajectories x 6), the conditioning batched 24, on the card
+    against the CPU: every input's gradient 1e-4 x max(1, max|g|)."""
+    rng = np.random.default_rng(4)
+    ca, total0, b = 6, LAYERS * GROWTH + 12, 24
+    cpu = [_np(rng, (b, 8, 16, ca)), _np(rng, (b, 8, 16, ca)), _np(rng, (b, 8, 16, WIDTH), 0.5),
+           _np(rng, (WIDTH, ca, 3, 3), 0.2), _np(rng, (WIDTH,), 0.1), _np(rng, (total0,), 0.1)]
+    wjs = [_np(rng, (total0 - j * GROWTH, WIDTH if j == 0 else GROWTH, 3, 3), 0.1)
+           for j in range(LAYERS + 1)]
+    grads = []
+    for dev in ("cpu", cuda_device):
+        xa, xb, h0c, win0, b0, bj0 = [a.detach().to(dev).requires_grad_() for a in cpu]
+        ws = [w.detach().to(dev).requires_grad_() for w in wjs]
+        before = tk.launches
+        y, ld = fused_coupling_autograd(xa, xb, h0c, win0, b0, ws, bj0, torch.float32,
+                                        reverse=True)
+        (y.pow(2).sum() + ld.pow(2).sum()).backward()
+        assert tk.launches - before == (1 if dev != "cpu" else 0)
+        grads.append([a.grad.cpu() for a in (xa, xb, h0c, win0, b0, bj0, *ws)])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-4 * max(1.0, b.abs().max().item()), rtol=0)
+
+
+def _finetune_window(model, dev, remat=False, m=3):
+    """One fine-tune window (B = 2, W = 2, M = m, every lambda nonzero)
+    with draws made on the CPU: (loss, {name: grad} with log_tau's)."""
+    cfg = model.cfg
+    rng = np.random.default_rng(5)
+    lf, hf = _np(rng, (2, 2, 4, 8, 3)), _np(rng, (2, 2, 16, 32, 3))
+    spec = torch.stack([tft.converged_log_spectra(hf[i]) for i in range(2)])
+    gen = torch.Generator().manual_seed(6)
+    eps = [[torch.randn(s, generator=gen).to(dev) for s in latent_shapes(cfg, 2 * m)]
+           for _ in range(2)]
+    lt = torch.log(torch.tensor([0.8, 0.7], device=dev)).requires_grad_()
+    model.zero_grad(set_to_none=True)
+    loss, _ = tft.make_finetune_loss(model, m, remat)(
+        lt, lf.to(dev), hf.to(dev), spec.to(dev), init_lstm_state(cfg, 2, dev), 0.5, 0.05, 0.3,
+        eps)
+    loss.backward()
+    grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    grads["log_tau"] = lt.grad.cpu()
+    return loss.item(), grads
+
+
+def _small_pair(dev):
+    cfg = ModelConfig(**SMALL)
+    cpu = TMGlow(cfg, device="cpu", seed=0)
+    perturb_(cpu, 7, 0.05)
+    gpu = TMGlow(cfg, device=dev, seed=0)
+    gpu.load_state_dict(cpu.state_dict())
+    return cpu, gpu
+
+
+@pytest.mark.cuda
+def test_cuda_finetune_window_matches_cpu(cuda_device):
+    """One f32 fine-tune window through K2 (forward at B = 2, reverse at
+    B x M = 6, both under autograd) on the card against the plain version
+    on the CPU, same weights and draws: loss 1e-5 relative, every
+    gradient and log_tau's 1e-4 x max(1, max|g|)."""
+    cpu, gpu = _small_pair(cuda_device)
+    l_c, g_c = _finetune_window(cpu, "cpu")
+    before = tk.launches
+    l_g, g_g = _finetune_window(gpu, cuda_device)
+    per_step = 2 * 2
+    assert tk.launches - before == 2 * 2 * per_step  # 2 timesteps x (forward + reverse)
+    assert np.isfinite(l_c) and abs(l_g - l_c) <= 1e-5 * max(1.0, abs(l_c))
+    for n, g in g_c.items():
+        torch.testing.assert_close(g_g[n], g, atol=1e-4 * max(1.0, g.abs().max().item()),
+                                   rtol=0, msg=n)
+
+
+@pytest.mark.cuda
+def test_cuda_remat_matches_no_remat(cuda_device):
+    """remat on the card: the same fine-tune loss (1e-6 relative) and
+    gradients (1e-6 x max(1, max|g|)) as without it; each timestep's K2
+    launches run again in the recompute."""
+    _, gpu = _small_pair(cuda_device)
+    out = []
+    for remat in (False, True):
+        before = tk.launches
+        out.append((*_finetune_window(gpu, cuda_device, remat), tk.launches - before))
+    (l0, g0, n0), (l1, g1, n1) = out
+    assert n1 == 2 * n0 == 32
+    assert abs(l1 - l0) <= 1e-6 * max(1.0, abs(l0))
+    for n, g in g0.items():
+        torch.testing.assert_close(g1[n], g, atol=1e-6 * max(1.0, g.abs().max().item()),
+                                   rtol=0, msg=n)
 
 
 # The JAX package's test shapes, the flagship shape; D % 4 of 1, 2 and 3

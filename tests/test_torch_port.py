@@ -116,3 +116,8 @@ def test_default_device_entry_point_raises_without_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TMGlow(cfg)
     assert TMGlow(cfg, device="cpu").device.type == "cpu"
+    # The fine-tune tool resolves its device before it reads anything.
+    from tpuflow_torch.tools.finetune import main as finetune_main
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        finetune_main(["backward-step", "train.checkpoint_dir=/nonexistent"])

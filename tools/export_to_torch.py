@@ -1,14 +1,16 @@
 """Export a JAX Orbax checkpoint of tpuflow to a checkpoint of the PyTorch
 port (tpuflow_torch).
 
-    python tools/export_to_torch.py <case> <orbax_checkpoint_dir> <out_dir> [--step N]
+    python tools/export_to_torch.py <case> <orbax_checkpoint_dir> <out_dir> [--step N] [key=value ...]
 
 ``<orbax_checkpoint_dir>`` is a ``train.checkpoint_dir`` of the JAX
 package (it holds ``<case>/<step>/``). The checkpoint is restored with
 the JAX package's ``load_eval_bundle``, its variables are mapped onto a
 CPU ``TMGlow`` of the port by ``tpuflow_torch.convert.from_flax``, and
 the port's ``Checkpointer`` writes ``<out_dir>/<case>/ckpt_{step:08d}.pt``
-with the same step. The file holds:
+with the same step. Trailing ``key=value`` overrides (``model.*``, for a
+checkpoint trained at other widths than the preset's) apply to both
+packages' configs. The file holds:
 
   * "model": the port's state dict (float32);
   * "norm": the checkpoint's normalization constants, as tensors;
@@ -34,9 +36,10 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 def export(case: str, orbax_dir: str | pathlib.Path, out_dir: str | pathlib.Path,
-           step: int | None = None) -> pathlib.Path:
+           step: int | None = None, overrides: dict | None = None) -> pathlib.Path:
     """Export step ``step`` (default: the latest) of the JAX checkpoint of
-    ``case`` under ``orbax_dir`` to ``out_dir``; returns the file written."""
+    ``case`` under ``orbax_dir`` to ``out_dir``, both configs built with
+    ``overrides``; returns the file written."""
     import jax
     import torch
 
@@ -53,9 +56,10 @@ def export(case: str, orbax_dir: str | pathlib.Path, out_dir: str | pathlib.Path
         step = JCheckpointer(orbax_dir / case).latest_step()
         if step is None:
             raise FileNotFoundError(f"no JAX checkpoint under {orbax_dir / case}")
-    jcfg = j_load_case(case, {"train.checkpoint_dir": str(orbax_dir)})
+    overrides = dict(overrides or {})
+    jcfg = j_load_case(case, {**overrides, "train.checkpoint_dir": str(orbax_dir)})
     _, variables, norm, meta = j_load_eval_bundle(jcfg, step)
-    cfg = load_case(case)
+    cfg = load_case(case, overrides)
     model = TMGlow(cfg.model, device="cpu")
     model.load_state_dict(from_flax(jax.device_get(variables), model))
     return Checkpointer(pathlib.Path(out_dir) / case).save(step, {
@@ -71,11 +75,15 @@ def main(argv: list[str] | None = None) -> pathlib.Path:
     ap.add_argument("orbax_dir", help="the JAX train.checkpoint_dir (holds <case>/<step>/)")
     ap.add_argument("out_dir", help="the port's train.checkpoint_dir to write")
     ap.add_argument("--step", type=int, default=None, help="checkpoint step (default: latest)")
-    args = ap.parse_args(argv)
+    ap.add_argument("overrides", nargs="*", help="dotted key=value config overrides")
+    args = ap.parse_intermixed_args(argv)
     import jax
 
+    from tpuflow_torch.configs import parse_cli_overrides
+
     jax.config.update("jax_platforms", "cpu")
-    out = export(args.case, args.orbax_dir, args.out_dir, args.step)
+    out = export(args.case, args.orbax_dir, args.out_dir, args.step,
+                 parse_cli_overrides(args.overrides))
     print(f"wrote {out}")
     return out
 

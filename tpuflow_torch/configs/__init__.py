@@ -2,6 +2,7 @@ from tpuflow_torch.configs.config import (
     CaseConfig,
     DataConfig,
     EvalConfig,
+    FinetuneConfig,
     ModelConfig,
     TrainConfig,
     case_names,
@@ -13,6 +14,7 @@ __all__ = [
     "CaseConfig",
     "DataConfig",
     "EvalConfig",
+    "FinetuneConfig",
     "ModelConfig",
     "TrainConfig",
     "case_names",

@@ -3,9 +3,9 @@ and rollout settings, read from per-case YAML presets with dotted
 overrides.
 
 Counterpart of ``tpuflow/configs/config.py`` (``ModelConfig``, the
-fields of ``DataConfig`` and ``TrainConfig`` that the trainer reads, the
-fields of ``EvalConfig`` that the rollout CLI reads, ``load_case``). The
-port keeps its own copy so that it imports nothing of the JAX package.
+fields of ``DataConfig`` and ``TrainConfig`` that the trainer reads,
+``EvalConfig``, ``FinetuneConfig``, ``load_case``). The port keeps its
+own copy so that it imports nothing of the JAX package.
 
 ``conv_layout``, ``flow_layout`` and ``use_pallas`` are accepted for
 parity with the JAX package's configs, but select nothing: the port
@@ -115,13 +115,29 @@ class TrainConfig:
     lr_decay: float = 0.995
     weight_decay: float = 0.0
     grad_clip: float = 100.0
+    # Recompute each timestep's activations in the backward pass
+    # (torch.utils.checkpoint) instead of keeping the whole window's:
+    # memory of one timestep for a second forward. Off by default, as in
+    # the JAX presets.
+    remat: bool = False
     checkpoint_dir: str = "./checkpoints"
     checkpoint_every: int = 10
+    # Save a sample-vs-target figure every N epochs (0 = off); needs
+    # matplotlib.
+    plot_every: int = 0
     # Held-out NLL every N epochs into val_log.csv (0 = off).
     eval_every: int = 0
     # Log a metrics row every N global steps (0 = off).
     log_every: int = 10
     seed: int = 42
+    # Raise FloatingPointError at the first module whose output is not
+    # finite (forward hooks), with autograd's anomaly mode for the
+    # backward. Each check waits on the device.
+    debug_nans: bool = False
+    # torch.profiler trace directory of the epoch loop ("" = off).
+    trace_dir: str = ""
+    # TensorBoard scalar-summary directory ("" = CSV/stdout only).
+    tensorboard_dir: str = ""
 
 
 @dataclass(frozen=True)
@@ -173,12 +189,63 @@ class EvalConfig:
 
 
 @dataclass(frozen=True)
+class FinetuneConfig:
+    """Sample-path fine-tuning knobs (train/finetune.py): dispersion and
+    spectral-shape objectives evaluated on generative draws, starting
+    from a converged NLL checkpoint. The JAX package's fields and
+    defaults."""
+
+    epochs: int = 8
+    # Generative draws per trajectory per timestep (folded into the
+    # batch axis of one reverse pass: TMGlow.nll_and_sample_step).
+    n_members: int = 6
+    # Trajectories per fine-tune batch (smaller than training: the
+    # sample branch multiplies the effective batch by n_members).
+    batch_size: int = 4
+    # Fair-ensemble-CRPS weight (dispersion in the loop; 0 = off).
+    lambda_crps: float = 0.0
+    # Member-fluctuation log-spectrum MSE weight (0 = off).
+    lambda_spec: float = 0.0
+    # Spread-skill (variance-matching) weight: per-pixel log-MSE of the
+    # fair ensemble variance against the squared ensemble-mean error
+    # (0 = off).
+    lambda_disp: float = 0.0
+    lr: float = 1e-4
+    grad_clip: float = 1000.0
+    # Optimize a per-scale log sampling temperature jointly with the
+    # parameters; deployed through checkpoint meta "learned_tau".
+    learn_tau: bool = True
+    # Which parameters may move: "all"; "nets" (all but the actnorm and
+    # inv-1x1 flow-arithmetic parameters, which are exponentially
+    # sensitive); or "priors" (only the conditional-prior nets: the
+    # decode map frozen). See train/finetune._scope_mask.
+    train_scope: str = "all"
+    remat: bool = False
+    # Source checkpoint directory ("" = train.checkpoint_dir). The
+    # fine-tuned checkpoint saves to checkpoint_dir ("" = source +
+    # "_ft"), never overwriting the source run.
+    source_dir: str = ""
+    checkpoint_dir: str = ""
+    seed: int = 7
+    # Overflow guard: an epoch is healthy iff its skipped-window fraction
+    # is <= max_skipped_frac and its bpd has not risen more than
+    # max_bpd_rise above the best healthy bpd. Healthy epochs snapshot
+    # the parameters to the host; the saved checkpoint is the last
+    # healthy snapshot. With early_stop, two consecutive unhealthy epochs
+    # (or a rise of twice max_bpd_rise) end the run.
+    max_skipped_frac: float = 0.4
+    max_bpd_rise: float = 0.5
+    early_stop: bool = True
+
+
+@dataclass(frozen=True)
 class CaseConfig:
     name: str = "backward-step"
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
+    finetune: FinetuneConfig = field(default_factory=FinetuneConfig)
 
     def validate(self) -> None:
         self.model.validate()

@@ -11,9 +11,11 @@ plausible-looking numbers.
 
 The meta stays a plain dict. A JAX checkpoint's meta config holds keys
 the port's strict config does not know (``data.loader``,
-``train.fused_windows``, ``finetune``, ...); only
-``meta["config"]["data"]["fixture_version"]`` and ``meta["learned_tau"]``
-are read from it.
+``train.fused_windows``, ``train.mesh_data``, ...; its ``finetune``
+section has the port's ``FinetuneConfig`` fields, and a fine-tuned
+checkpoint's meta adds the ``finetune`` summary of
+``tools/finetune.py``); only ``meta["config"]["data"]["fixture_version"]``
+and ``meta["learned_tau"]`` are read from it.
 """
 
 from __future__ import annotations

@@ -162,7 +162,8 @@ def relative_l2(pred: torch.Tensor, ref: torch.Tensor, axes=None) -> torch.Tenso
 
 
 def energy_spectrum(fluct: torch.Tensor, domain: tuple[float, float] | None = None,
-                    taper: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+                    taper: bool = False, batch_dims: int = 0
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Radial kinetic-energy spectrum of (..., H, W, Cv) velocity
     fluctuations, averaged over the leading axes.
 
@@ -171,16 +172,20 @@ def energy_spectrum(fluct: torch.Tensor, domain: tuple[float, float] | None = No
     = integer mode index); ``taper`` applies a power-compensated 2-D Hann
     window first (the flows are not periodic). Returns (k, E), each
     (nbins,), with sum(E) = 0.5 <|u'|^2> over the modes |k| <= k_max.
+    ``batch_dims`` leading axes are kept, not averaged: E is then
+    (*those axes, nbins), one spectrum per index (JAX's ``vmap`` of the
+    function over them).
     """
-    *_, h, w, c = fluct.shape
+    *lead, h, w, c = fluct.shape
+    keep = tuple(lead[:batch_dims])
     ly, lx = (1.0, 1.0) if domain is None else (float(domain[0]), float(domain[1]))
-    x = fluct.reshape(-1, h, w, c).to(F32)
+    x = fluct.reshape(*keep, -1, h, w, c).to(F32)
     if taper:
         win = np.hanning(h)[:, None] * np.hanning(w)[None, :]
         win = win / np.sqrt((win**2).mean())
-        x = x * _const(win, x)[None, :, :, None]
-    fh = torch.fft.fft2(x, dim=(1, 2))
-    ps = (fh.abs() ** 2).sum(dim=-1).mean(dim=0) / float(h * w) ** 2
+        x = x * _const(win, x)[:, :, None]
+    fh = torch.fft.fft2(x, dim=(-3, -2))
+    ps = (fh.abs() ** 2).sum(dim=-1).mean(dim=-3) / float(h * w) ** 2
     ky = np.fft.fftfreq(h) * h / ly
     kx = np.fft.fftfreq(w) * w / lx
     kr = np.sqrt(ky[:, None] ** 2 + kx[None, :] ** 2)
@@ -188,8 +193,9 @@ def energy_spectrum(fluct: torch.Tensor, domain: tuple[float, float] | None = No
     nbins = int(np.floor(min(h / (2 * ly), w / (2 * lx)) / dk)) + 1
     r = np.round(kr / dk).astype(np.int64)
     bins = torch.as_tensor(np.where(r < nbins, r, nbins).ravel(), device=x.device)
-    seg = torch.zeros(nbins + 1, dtype=F32, device=x.device).index_add_(0, bins, ps.reshape(-1))
-    return torch.arange(nbins, dtype=F32, device=x.device) * dk, 0.5 * seg[:nbins]
+    seg = torch.zeros(*keep, nbins + 1, dtype=F32, device=x.device).index_add_(
+        -1, bins, ps.reshape(*keep, -1))
+    return torch.arange(nbins, dtype=F32, device=x.device) * dk, 0.5 * seg[..., :nbins]
 
 
 def fluctuation_pdf(samples: torch.Tensor, bins: int = 64, lo: float | None = None,

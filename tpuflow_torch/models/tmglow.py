@@ -186,6 +186,22 @@ class TMGlow(nn.Module):
         _, logdet, logp = self.glow(hf_t, conds)
         return -(logp + logdet) / (dims * _LN2), state
 
+    def sample_step(
+        self,
+        lf_t: torch.Tensor,
+        state: LSTMState,
+        temperature=1.0,
+        *,
+        generator: torch.Generator | None = None,
+        eps: list[torch.Tensor] | None = None,
+    ) -> tuple[torch.Tensor, LSTMState]:
+        """Reverse (generative) direction: one autoregressive HF draw from
+        (lf_t (N, h, w, C), state) at ``temperature``. ``eps[l]`` hands in
+        scale l's standard-normal draws. Returns (x (N, H, W, C), state)."""
+        conds, state = self._condition_lf(lf_t, state)
+        x, _ = self.glow.reverse(conds, temperature=temperature, generator=generator, eps=eps)
+        return x, state
+
     def nll_and_sample_step(
         self,
         hf_t: torch.Tensor,

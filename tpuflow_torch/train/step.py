@@ -6,7 +6,10 @@ mean bits/dim, backpropagate through the whole window, clip the global
 gradient norm, and take an Adam step. Truncation: the state *value*
 carries across windows, its gradient does not (the state is detached at
 every window boundary), as the JAX package's per-window
-``value_and_grad`` does. The time loop is a Python loop.
+``value_and_grad`` does. The time loop is a Python loop; with ``remat``
+each timestep runs under ``torch.utils.checkpoint`` (the counterpart of
+``jax.checkpoint``), so the backward recomputes that timestep's
+activations instead of keeping the whole window's.
 
 The optimizer matches the JAX package's optax chain
 ``clip_by_global_norm -> [add_decayed_weights] -> adam(schedule)``:
@@ -26,20 +29,41 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from tpuflow_torch.data.dataset import TrajectoryDataset
 from tpuflow_torch.models.tmglow import LSTMState, TMGlow, init_lstm_state
 
 
-def window_bpd_fn(model: TMGlow) -> Callable[..., tuple[torch.Tensor, LSTMState]]:
+def remat_step(fn: Callable, remat: bool) -> Callable:
+    """``fn`` itself, or with ``remat`` ``fn`` under
+    ``torch.utils.checkpoint`` (non-reentrant): the backward recomputes
+    its forward. The recompute restores the global RNG but not an
+    explicit ``torch.Generator``, so a checkpointed function must take
+    its random draws as arguments."""
+    if not remat:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def window_bpd_fn(
+    model: TMGlow, remat: bool = False
+) -> Callable[..., tuple[torch.Tensor, LSTMState]]:
     """Build loss(lf_win, hf_win, state) -> (mean bits/dim over the
-    window, final state); lf_win/hf_win are batch-major (B, W, ...)."""
+    window, final state); lf_win/hf_win are batch-major (B, W, ...).
+    ``remat`` recomputes each timestep in the backward pass."""
+
+    def step(hf_t, lf_t, state):
+        bpd, state = model.nll_step(hf_t, lf_t, state)
+        return bpd.mean(), state
+
+    step = remat_step(step, remat)
 
     def loss_fn(lf_win: torch.Tensor, hf_win: torch.Tensor, state: LSTMState):
         bpds = []
         for t in range(lf_win.shape[1]):
-            bpd, state = model.nll_step(hf_win[:, t], lf_win[:, t], state)
-            bpds.append(bpd.mean())
+            bpd, state = step(hf_win[:, t], lf_win[:, t], state)
+            bpds.append(bpd)
         return torch.stack(bpds).mean(), state
 
     return loss_fn
@@ -83,12 +107,13 @@ def train_step(
     lf_win: torch.Tensor,
     hf_win: torch.Tensor,
     state: LSTMState,
+    remat: bool = False,
 ) -> tuple[LSTMState, dict[str, torch.Tensor]]:
     """One window: loss, backward, clip, Adam step. Returns the final
     state (detached: its value carries, its gradient does not) and
     {"bpd", "grad_norm"} (the norm before the clip), as 0-d tensors."""
     params = [p for p in model.parameters() if p.requires_grad]
-    loss, state = window_bpd_fn(model)(lf_win, hf_win, state)
+    loss, state = window_bpd_fn(model, remat)(lf_win, hf_win, state)
     grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
     norm = clip_by_global_norm_(list(grads), grad_clip)
     for p, g in zip(params, grads):
@@ -107,6 +132,7 @@ def trajectory_train_step(
     window: int,
     lf_traj: torch.Tensor,
     hf_traj: torch.Tensor,
+    remat: bool = False,
 ) -> dict[str, torch.Tensor]:
     """Every BPTT window of a trajectory batch (B, T, ...) in order, the
     semantics of the JAX package's ``make_trajectory_train_step``: the
@@ -117,7 +143,8 @@ def trajectory_train_step(
     state = init_lstm_state(model.cfg, lf_traj.shape[0], lf_traj.device)
     bpds, norms = [], []
     for lf_win, hf_win in TrajectoryDataset.windows(lf_traj, hf_traj, window):
-        state, m = train_step(model, optimizer, scheduler, grad_clip, lf_win, hf_win, state)
+        state, m = train_step(model, optimizer, scheduler, grad_clip, lf_win, hf_win, state,
+                              remat)
         bpds.append(m["bpd"])
         norms.append(m["grad_norm"])
     return {"bpd": torch.stack(bpds), "grad_norm": torch.stack(norms)}

@@ -12,15 +12,37 @@ the device once and batches are gathered there by index, as the JAX
 package's default path does; otherwise each batch is uploaded. Every
 ``train.log_every``-th window logs its bpd and its gradient norm before
 the clip (a logged row waits for the device; other windows do not).
+
+The training options of the JAX trainer:
+
+* ``train.remat``: each timestep runs under ``torch.utils.checkpoint``;
+* ``train.debug_nans``: the counterpart of ``jax_debug_nans``. A forward
+  hook on every module raises ``FloatingPointError`` naming the first
+  module whose output is not finite, and autograd's anomaly mode names
+  the backward function that made a NaN. Each hook waits on the device,
+  so it is off by default;
+* ``train.trace_dir``: the epoch loop runs under
+  ``utils.profiling.trace_context`` (a ``torch.profiler`` Chrome trace);
+* ``train.plot_every``: every N epochs a sample at tau 0.7 of the first
+  training batch's first frame, drawn by ``eval.plots.
+  plot_prediction_panels`` into ``<checkpoint_dir>/<case>/train_plots``
+  (needs matplotlib, checked at construction);
+* validation touches the logger's file every 60 s while it runs, the
+  supervisor's heartbeat.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import importlib.util
+import threading
 import time
 from typing import Any
 
+import numpy as np
 import torch
+from torch import nn
 
 from tpuflow_torch.configs.config import CaseConfig
 from tpuflow_torch.data.dataset import TrajectoryDataset, find_archive, load_dataset
@@ -30,6 +52,29 @@ from tpuflow_torch.models.tmglow import TMGlow, init_lstm_state
 from tpuflow_torch.train.checkpoint import Checkpointer
 from tpuflow_torch.train.step import make_optimizer, trajectory_train_step
 from tpuflow_torch.utils.logging import MetricsLogger
+from tpuflow_torch.utils.profiling import _leaves, trace_context
+
+# tau of the periodic training sample (the JAX trainer's).
+_PLOT_TAU = 0.7
+
+
+def _nan_hook(name: str):
+    def hook(module, inputs, output):
+        for t in _leaves(output):
+            if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+                raise FloatingPointError(
+                    f"debug_nans: non-finite output of module {name!r} "
+                    f"({type(module).__name__})")
+    return hook
+
+
+def install_nan_hooks(model: nn.Module) -> list:
+    """A forward hook on every submodule of ``model`` that raises
+    ``FloatingPointError`` naming the module whose output holds a NaN or
+    inf; returns the hook handles. Innermost modules finish first, so the
+    first module named is where the value appeared."""
+    return [m.register_forward_hook(_nan_hook(n or type(model).__name__))
+            for n, m in model.named_modules()]
 
 
 class Trainer:
@@ -59,7 +104,13 @@ class Trainer:
                 raise ValueError(
                     f"train.eval_every={cfg.train.eval_every} needs the test split: {e}"
                 ) from e
+        if cfg.train.plot_every and importlib.util.find_spec("matplotlib") is None:
+            raise ValueError(
+                f"train.plot_every={cfg.train.plot_every} draws figures, but matplotlib is "
+                "not installed; set train.plot_every=0"
+            )
         self.model = TMGlow(cfg.model, device=self.device, seed=cfg.train.seed)
+        self._nan_hooks = install_nan_hooks(self.model) if cfg.train.debug_nans else []
         self.optimizer, self.scheduler = make_optimizer(
             self.model.parameters(), cfg.train.lr, cfg.train.lr_decay, cfg.train.weight_decay
         )
@@ -120,7 +171,10 @@ class Trainer:
         if self.epoch >= epochs:
             print(f"already trained to epoch {self.epoch} (>= {epochs}); nothing to do")
             return {"epoch": self.epoch, "mean_bpd": float("nan"), "windows_per_sec": 0.0}
-        return self._epoch_loop(epochs)
+        anomaly = (torch.autograd.detect_anomaly() if self.cfg.train.debug_nans
+                   else contextlib.nullcontext())
+        with trace_context(self.cfg.train.trace_dir or None), anomaly:
+            return self._epoch_loop(epochs)
 
     def _batches(self, seed: int):
         b = self.cfg.data.batch_size
@@ -145,7 +199,7 @@ class Trainer:
             for lf, hf in self._batches(cfg.data.seed + self.epoch):
                 m = trajectory_train_step(
                     self.model, self.optimizer, self.scheduler, cfg.train.grad_clip,
-                    cfg.data.window, lf, hf,
+                    cfg.data.window, lf, hf, cfg.train.remat,
                 )
                 per_batch.append(m)
                 for i in range(m["bpd"].shape[0]):
@@ -164,6 +218,8 @@ class Trainer:
             }
             if self.epoch % cfg.train.checkpoint_every == 0 or self.epoch == epochs:
                 self.save()
+            if cfg.train.plot_every and self.epoch % cfg.train.plot_every == 0:
+                self._plot_sample()
             if cfg.train.eval_every and self.epoch % cfg.train.eval_every == 0:
                 last["val_bpd"] = self._validate()
         return last
@@ -180,9 +236,43 @@ class Trainer:
                 MetricsLogger(self.ckpt.directory / "val_log.csv", quiet=True),
             )
         lf, hf, nll, logger = self._val
-        val_bpd = float(nll(lf, hf).mean())
+        # Keep the supervisor's heartbeat (the train log's mtime) alive for
+        # the whole validation: it is progress, not a stall.
+        stop = threading.Event()
+
+        def tick():
+            while not stop.wait(60.0):
+                self.logger.touch()
+
+        ticker = threading.Thread(target=tick, daemon=True)
+        self.logger.touch()
+        ticker.start()
+        try:
+            val_bpd = float(nll(lf, hf).mean())
+        finally:
+            stop.set()
+            ticker.join()
         logger.log(self.global_step, epoch=self.epoch, val_bpd=val_bpd)
         return val_bpd
+
+    def _plot_sample(self) -> None:
+        """The periodic sample figure: one draw at tau 0.7 on the first
+        training batch's first LF frame (from a zero state, the generator
+        seeded by the epoch), plotted against its HF target."""
+        from tpuflow_torch.eval.plots import plot_prediction_panels
+
+        cfg = self.cfg
+        b = cfg.data.batch_size
+        lf_b, hf_b = next(self.dataset.traj_batches(cfg.data.seed, b))
+        gen = torch.Generator(self.device).manual_seed(self.epoch)
+        with torch.no_grad():
+            x, _ = self.model.sample_step(
+                torch.from_numpy(lf_b[:, 0]).to(self.device),
+                init_lstm_state(cfg.model, b, self.device), _PLOT_TAU, generator=gen)
+        plot_prediction_panels(
+            self.ckpt.directory / "train_plots", lf_b[0, 0], hf_b[0, 0],
+            x[0].float().cpu().numpy(), np.zeros_like(hf_b[0, 0]), t=self.epoch,
+        )
 
     def save(self) -> None:
         self.ckpt.save(self.epoch, {
