@@ -46,6 +46,18 @@ and read just after:
     in one f32 window and timed alone; the output's learned tau served by
     the rollout CLI's compute half; remat's peak memory and seconds
     (phase "finetune").
+  * data parallelism at full width, f32: two ranks, child processes
+    sharing the card over gloo, each training on half of a batch-8 window,
+    held against one process on the whole batch, both through K2; then an
+    NCCL all-reduce of the gradients and an NCCL world of one through the
+    training CLI (phase "data parallel");
+  * the member split: K2 held against its plain version at the chunks'
+    batches; 64 members as two chunks on a mesh of [card, card] against
+    the flat rollout on one generator, and both timed (phase "split");
+  * the data tier: the training fixture written to .tpf (and .h5 where
+    h5py is installed), the streamed first batch held to the RAM loader's,
+    training through the CLI with ``data.loader=stream`` against a RAM run
+    of the same seed (phase "stream").
 
 The rollout CLI and the evaluator draw their figures when matplotlib is
 installed, and the phases check the files; without it they run the
@@ -148,6 +160,23 @@ FT_ARGS = ["finetune.lambda_crps=0.3", "finetune.lambda_spec=0.02",
            "finetune.n_members=6", "finetune.batch_size=4", "finetune.learn_tau=true",
            "finetune.epochs=2", "eval.ref_steps=64"]
 FT_SERVE_STEPS = 16
+# Data parallelism: two ranks on one card over gloo, full width f32; the
+# one-process window on the full batch holds them (loss 1e-5 relative, each
+# gradient 1e-4 x max(1, max |g|): the ranks' halves run through K2 at
+# batch 4 against batch 8, and their average sums in another order).
+DP_TOL_LOSS, DP_TOL_GRAD = 1e-5, 1e-4
+DP_WINDOWS = 3  # per rank: the held window, then two timed ones
+# The member split against the flat rollout on one generator: at f32 only
+# the chunks' batch sizes differ; at bf16 a conditioning conv whose cuDNN
+# algorithm changes with the batch may round a feature one ulp apart.
+SPLIT_TOL = {"float32": 1e-5, "bfloat16": 5e-3}
+# A streamed training epoch against the same epoch from RAM on the same
+# constants: the store's fused (x - mean) * (1 / std) and RAM's
+# (x - mean) / std round an input an ulp apart at most.
+STREAM_TOL_BPD = 1e-6
+# The streamed batch on the store's own constants against RAM's: the same
+# ulp apart, on inputs of order 1 (the CPU tests' bound, test_torch_tpf.py).
+STREAM_TOL_NORM = 1e-6
 
 
 @contextlib.contextmanager
@@ -954,9 +983,11 @@ def rollout_cli_phase(dev, overrides=()) -> dict:
         check(figures <= files, f"rollout CLI figures (missing {sorted(figures - files)})")
     check(saved == metrics and set(saved) == {"rollout_steps_per_sec", "steps", "n_samples",
                                               "rollout_steps_per_sec_seconds", "temperature",
-                                              "backend"}, "rollout_metrics.json keys")
+                                              "backend", "devices"}, "rollout_metrics.json keys")
+    mesh = rollout_cli.member_mesh(rollout_cli.visible_devices(dev), N_MEMBERS)
+    print(f"  members split over {saved['devices']} device(s)", flush=True)
     check(saved["steps"] == CLI_STEPS and saved["n_samples"] == N_MEMBERS
-          and saved["backend"] == dev.type
+          and saved["backend"] == dev.type and saved["devices"] == (mesh.size if mesh else 1)
           and all(abs(a - b) < 1e-6 for a, b in zip(saved["temperature"], CLI_TAU)),
           "rollout_metrics.json values")
     check(set(stats) == {"mean", "var"}, "rollout_stats.npz keys")
@@ -1474,10 +1505,419 @@ def finetune_phase(case, dev, overrides=()) -> dict:
     return res
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_reference():
+    """(the "train" phase's config, its model at f32, and the first window
+    (lf, hf) of its first trajectory batch, NumPy on the host)."""
+    import dataclasses
+
+    from tpuflow_torch.configs import load_case, parse_cli_overrides
+    from tpuflow_torch.data import load_dataset
+
+    tcfg = load_case("backward-step", parse_cli_overrides(TRAIN_ARGS))
+    mcfg = dataclasses.replace(tcfg.model, compute_dtype="float32")
+    ds = load_dataset(tcfg.data, mcfg)
+    idx = next(ds.batch_indices(tcfg.data.seed, tcfg.data.batch_size))
+    w = tcfg.data.window
+    return tcfg, mcfg, ds.lf[idx, :w], ds.hf[idx, :w]
+
+
+def dp_worker(rank: int, port: int, workdir: str) -> int:
+    """One rank of the "data parallel" phase, a child process: joins a gloo
+    group of two on the one card, loads the parent's f32 model, and runs
+    DP_WINDOWS windows of ``train.train_step`` on its rows of the batch (K2
+    launches counted over them); the first window's loss and averaged
+    gradients, the timings and the all-reduce's time go to
+    ``workdir/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from tpuflow_torch.device import resolve_device
+    from tpuflow_torch.kernels import coupling_fused
+    from tpuflow_torch.models import TMGlow, init_lstm_state
+    from tpuflow_torch.train import make_optimizer, mesh as mesh_lib, train_step
+
+    dev = resolve_device("cuda")
+    tcfg, mcfg, lf, hf = dp_reference()
+    # gloo, on CUDA tensors: NCCL refuses two ranks on one GPU.
+    mesh_lib.initialize_multihost(f"127.0.0.1:{port}", 2, rank, device="cpu")
+    try:
+        mesh = mesh_lib.make_mesh(-1, 1)
+        rows = mesh_lib.data_sharding(mesh, lf.shape[0])
+        model = TMGlow(mcfg, device=dev)
+        model.load_state_dict(torch.load(f"{workdir}/model.pt", map_location=dev))
+        opt, sched = make_optimizer(model.parameters(), tcfg.train.lr, tcfg.train.lr_decay)
+        lf_r, hf_r = (torch.from_numpy(a[rows]).to(dev) for a in (lf, hf))
+        out: dict = {"rows": [rows.start, rows.stop], "seconds": []}
+        coupling_fused.launches = 0
+        for i in range(DP_WINDOWS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m = train_step(model, opt, sched, tcfg.train.grad_clip, lf_r, hf_r,
+                              init_lstm_state(mcfg, lf_r.shape[0], dev))
+            torch.cuda.synchronize()
+            out["seconds"].append(time.perf_counter() - t0)
+            if i == 0:
+                out["bpd"], out["grad_norm"] = m["bpd"].item(), m["grad_norm"].item()
+                out["grads"] = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        out["launches"] = coupling_fused.launches
+        grads = [p.grad for p in model.parameters()]
+        out["allreduce_mbytes"] = sum(g.numel() for g in grads) * 4 / 1e6
+        out["allreduce_ms"] = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mesh_lib.all_reduce_mean_(grads)
+            torch.cuda.synchronize()
+            out["allreduce_ms"].append((time.perf_counter() - t0) * 1e3)
+        torch.save(out, f"{workdir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def data_parallel_phase(dev) -> dict:
+    """Data parallelism at full width, f32, one window of batch 8 x 8 steps:
+    two ranks as child processes on the one card over gloo (NCCL refuses
+    two ranks on one GPU), each on 4 rows, held against one process on the
+    full batch, both through K2; then an NCCL all-reduce of the one
+    process's gradients in a world of one, and that world (the backend of
+    a multi-GPU host) through the training CLI, one epoch of the "train"
+    phase's fixture. Windows/s of each."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from tpuflow_torch.cli.train import main as train_main
+    from tpuflow_torch.kernels import coupling_fused
+    from tpuflow_torch.models import TMGlow, init_lstm_state, perturb_
+    from tpuflow_torch.train import make_optimizer, mesh as mesh_lib, train_step
+
+    tcfg, mcfg, lf, hf = dp_reference()
+    per_window = mcfg.n_scales * mcfg.n_flow_steps * tcfg.data.window
+    model = TMGlow(mcfg, device=dev, seed=0)
+    lf_d, hf_d = torch.from_numpy(lf).to(dev), torch.from_numpy(hf).to(dev)
+    model.data_init(hf_d[:, 0], lf_d[:, 0], init_lstm_state(mcfg, lf.shape[0], dev))
+    perturb_(model, 6)  # non-zero coupling heads and priors
+    res: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        torch.save(model.state_dict(), f"{tmp}/model.pt")
+        port = free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, str(pathlib.Path(__file__).resolve()), "--dp-rank", str(r),
+             "--dp-port", str(port), "--dp-dir", tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                print(f"  rank {r} exited {p.returncode}:\n{log[-6000:]}", flush=True)
+            check(p.returncode == 0, f"data-parallel rank {r}")
+        ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(2)]
+
+    # One process on the full batch: the held window, then the timed ones.
+    opt, sched = make_optimizer(model.parameters(), tcfg.train.lr, tcfg.train.lr_decay)
+    one_s = []
+    coupling_fused.launches = 0
+    for i in range(DP_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = train_step(model, opt, sched, tcfg.train.grad_clip, lf_d, hf_d,
+                          init_lstm_state(mcfg, lf.shape[0], dev))
+        torch.cuda.synchronize()
+        one_s.append(time.perf_counter() - t0)
+        if i == 0:
+            loss = m["bpd"].item()
+            want = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    check(coupling_fused.launches == DP_WINDOWS * per_window, "K2 launches, one process")
+    for r, got in enumerate(ranks):
+        err_loss = abs(got["bpd"] - loss) / max(1.0, abs(loss))
+        errs = sorted(((got["grads"][n] - g).abs().max().item() / max(1.0, g.abs().max().item()),
+                       n) for n, g in want.items())
+        print(f"  rank {r} (rows {got['rows']}): loss {got['bpd']:.6f} vs one process "
+              f"{loss:.6f} (rel err {err_loss:.3e}, tol {DP_TOL_LOSS}); gradient err x max(1, "
+              f"max|g|) (tol {DP_TOL_GRAD}), worst of {len(errs)}: "
+              + ", ".join(f"{n} {e:.3e}" for e, n in errs[:-4:-1])
+              + f"; K2 launches {got['launches']} (expected {DP_WINDOWS} x {per_window})",
+              flush=True)
+        check(err_loss <= DP_TOL_LOSS and errs[-1][0] <= DP_TOL_GRAD,
+              f"rank {r}'s window against one process on the full batch")
+        check(got["launches"] == DP_WINDOWS * per_window, f"K2 launches of rank {r}")
+    check(all(torch.equal(ranks[0]["grads"][n], ranks[1]["grads"][n]) for n in want),
+          "both ranks hold the same averaged gradients")
+    rank_s = [max(a, b) for a, b in zip(ranks[0]["seconds"], ranks[1]["seconds"])]
+    ar = sorted(ranks[0]["allreduce_ms"] + ranks[1]["allreduce_ms"])
+    res.update(loss_rel_err=err_loss, grad_rel_err=errs[-1][0],
+               one_process_windows_per_sec=1 / min(one_s[1:]),
+               two_ranks_windows_per_sec=1 / min(rank_s[1:]),
+               allreduce_ms=ar[len(ar) // 2], allreduce_mbytes=ranks[0]["allreduce_mbytes"],
+               launches=ranks[0]["launches"] + ranks[1]["launches"])
+    print(f"  f32 window batch 8 x 8 steps, windows/s (best of {DP_WINDOWS - 1} after the held "
+          f"one): one process {res['one_process_windows_per_sec']:.3f}, two ranks on one card "
+          f"{res['two_ranks_windows_per_sec']:.3f} (each on 4 rows; two processes sharing one "
+          f"card are no speed-up); gloo all-reduce of {res['allreduce_mbytes']:.1f} MB of "
+          f"gradients {res['allreduce_ms']:.2f} ms (median of 6) [{SMI[0]}]", flush=True)
+
+    # An NCCL collective on the card: NCCL refuses two ranks on one GPU, and
+    # a world of one averages nothing (all_reduce_mean_ returns at once), so
+    # the one process's flattened gradients go through dist.all_reduce in
+    # an NCCL world of one, where the sum over one rank is its input.
+    mesh_lib.initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, device=dev)
+    try:
+        flat = torch.cat([p.grad.reshape(-1) for p in model.parameters()])
+        sent, nccl_ms = flat.clone(), []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.all_reduce(flat)
+            torch.cuda.synchronize()
+            nccl_ms.append((time.perf_counter() - t0) * 1e3)
+        check(torch.equal(flat, sent), "NCCL all-reduce over one rank returns its input")
+    finally:
+        dist.destroy_process_group()
+    res["nccl_allreduce_ms"] = sorted(nccl_ms)[1]
+    print(f"  NCCL all-reduce of the same {res['allreduce_mbytes']:.1f} MB in a world of one: "
+          f"returned its input; {res['nccl_allreduce_ms']:.3f} ms (median of 3; no transfer "
+          f"between cards) [{SMI[0]}]", flush=True)
+    del model, opt, flat, sent
+
+    # One NCCL world through the training CLI, as torchrun launches it, for
+    # one epoch: the "train" phase already trains two.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()), "WORLD_SIZE": "1",
+               "RANK": "0", "LOCAL_RANK": "0"}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        coupling_fused.launches = 0
+        try:
+            final = train_main(["backward-step", *TRAIN_ARGS, f"train.checkpoint_dir={tmp}",
+                                "train.epochs=1", "--device", dev.type])
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        torch.cuda.synchronize()
+        nccl_launches = coupling_fused.launches
+    d = tcfg.data
+    n_windows = (d.n_train_traj // d.batch_size) * (d.train_steps // d.window)
+    expected = tcfg.model.n_scales * tcfg.model.n_flow_steps * (1 + d.window * n_windows)
+    print(f"  NCCL world of 1 through the CLI: epoch {final['epoch']}, bpd "
+          f"{final['mean_bpd']:.4f}, {final['windows_per_sec']:.3f} windows/s in epoch 1 "
+          f"(bf16, batch 8); K2 launches {nccl_launches} (expected {expected}) [{SMI[0]}]",
+          flush=True)
+    check(final["epoch"] == 1 and math.isfinite(final["mean_bpd"])
+          and nccl_launches == expected, "NCCL training through the CLI")
+    res.update(nccl_windows_per_sec=final["windows_per_sec"], nccl_launches=nccl_launches)
+    return res
+
+
+def split_phase(cfg, dev, steps: int, n=N_MEMBERS) -> dict:
+    """The member split: K2 held against its plain version at the chunks'
+    batch sizes; ``n`` members as two chunks of n/2 on a mesh of [card,
+    card] (the second on a replica), against the flat rollout on the same
+    generator, bf16 at ``steps`` steps and f32 at 2; then both timed,
+    flat / split / split / flat, with the redraw off."""
+    import dataclasses
+
+    import torch
+
+    from tpuflow_torch.eval import make_ensemble_rollout
+    from tpuflow_torch.kernels import coupling_fused
+    from tpuflow_torch.models import TMGlow, perturb_
+    from tpuflow_torch.train import make_mesh
+
+    per_step = cfg.n_scales * cfg.n_flow_steps
+    # K2 at each chunk's batch against its plain version: n/2 here, n/4
+    # and n/8 where the rollout CLI splits over 4 or 8 cards.
+    res: dict = {"max_abs_err": max(k2_parity(cfg, dev, b) for b in (n // 2, n // 4, n // 8))}
+    gen = torch.Generator().manual_seed(14)
+    lf = torch.randn(steps, *cfg.lf_shape, cfg.channels, generator=gen).to(dev)
+    for dtype, t in (("float32", 2), ("bfloat16", steps)):
+        model = TMGlow(dataclasses.replace(cfg, compute_dtype=dtype), device=dev, seed=0)
+        perturb_(model, 1)
+        mesh = make_mesh(1, 2, devices=[model.device, model.device])
+        flat = make_ensemble_rollout(model, n, TAU)
+        split = make_ensemble_rollout(model, n, TAU, mesh=mesh)
+        coupling_fused.launches = 0
+        got = split(lf[:t], torch.Generator(dev).manual_seed(15))
+        torch.cuda.synchronize()
+        launches = coupling_fused.launches
+        want = flat(lf[:t], torch.Generator(dev).manual_seed(15))
+        errs = {k: (got[k] - want[k]).abs().max().item() / max(1.0, want[k].abs().max().item())
+                for k in want}
+        print(f"  {dtype} {n} members x {t} steps, split in 2 chunks vs flat on one generator: "
+              f"err x max(1, max |ref|) mean {errs['mean']:.3e}, var {errs['var']:.3e} (tol "
+              f"{SPLIT_TOL[dtype]}); K2 launches {launches} (expected 2 x {per_step} x {t})",
+              flush=True)
+        check(all(bool(torch.isfinite(v).all()) for v in got.values())
+              and max(errs.values()) <= SPLIT_TOL[dtype], f"{dtype} split vs flat")
+        check(launches == 2 * per_step * t, f"K2 launches of the {dtype} split")
+        res[f"max_rel_err_{dtype}"] = max(errs.values())
+    res["launches"] = launches
+    rates = {"flat": [], "split": []}
+    for name in ("flat", "split", "split", "flat"):
+        roll = flat if name == "flat" else split
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        roll(lf, torch.Generator(dev).manual_seed(16))
+        torch.cuda.synchronize()
+        rates[name].append(steps / (time.perf_counter() - t0))
+    print(f"  bf16 {n} x {steps}, steps/s flat / split / split / flat: {rates['flat'][0]:.3f} / "
+          f"{rates['split'][0]:.3f} / {rates['split'][1]:.3f} / {rates['flat'][1]:.3f} (one host "
+          f"thread drives both chunks on one card: the split launches twice per step) "
+          f"[{SMI[0]}]", flush=True)
+    res.update(steps_per_sec_flat=rates["flat"], steps_per_sec_split=rates["split"])
+    return res
+
+
+def stream_phase(dev, overrides=()) -> dict:
+    """The data tier on the card's host: the "train" phase's fixture written
+    to .tpf (and .h5 where h5py is installed), the store's first batch held
+    to the RAM loader's, then one epoch through the training CLI with
+    ``data.loader=stream``, and one epoch of the Trainer streamed beside
+    one from RAM on the same seed and constants (epoch 1's mean bpd within
+    STREAM_TOL_BPD); windows/s side by side."""
+    import csv
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpuflow_torch.cli.train import main as train_main
+    from tpuflow_torch.configs import load_case, parse_cli_overrides
+    from tpuflow_torch.data import NormStats, TrajectoryDataset, generate_case, load_archive
+    from tpuflow_torch.data import save_archive
+    from tpuflow_torch.data.tpf import StreamingTrajectoryDataset, TPFStore, save_tpf
+    from tpuflow_torch.kernels import coupling_fused
+    from tpuflow_torch.train import Trainer
+    from tpuflow_torch.utils.logging import MetricsLogger
+
+    tcfg = load_case("backward-step", parse_cli_overrides([*TRAIN_ARGS, *overrides]))
+    d, mc = tcfg.data, tcfg.model
+    lf, hf = generate_case(d.case, d.n_train_traj, d.train_steps, mc.hf_shape, mc.lf_shape,
+                           seed=d.seed, fixture_version=d.fixture_version)
+    gxx = shutil.which("g++")
+    res: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as tmp:
+        save_tpf(f"{tmp}/backward-step_train.tpf", lf, hf)
+        archive = "h5" if importlib.util.find_spec("h5py") else "npz"
+        save_archive(f"{tmp}/backward-step_train.{archive}", lf, hf)
+        back = load_archive(f"{tmp}/backward-step_train.{archive}")
+        check(all(np.array_equal(a, b) for a, b in zip(back, (lf, hf))), f".{archive} roundtrip")
+        if archive == "h5":
+            print("  .h5 archive written and read back bit-equal", flush=True)
+        else:
+            print("  .h5 not checked: h5py is not installed here (.npz written and read back "
+                  "instead)", flush=True)
+        store = TPFStore(f"{tmp}/backward-step_train.tpf")
+        native = store.native
+        print(f"  TPFStore.native {native}; g++ {gxx or 'not found'}", flush=True)
+        check(store.native or gxx is None, "the native loader builds where g++ is present")
+        ram = TrajectoryDataset(lf, hf)
+        idx = next(ram.batch_indices(d.seed, d.batch_size))
+        raw = [store.read_batch(w, idx, 0, d.train_steps) for w in ("lf", "hf")]
+        check(np.array_equal(raw[0], lf[idx]) and np.array_equal(raw[1], hf[idx]),
+              "the store's raw first batch bit-equal to the arrays")
+        # Stds that are powers of two make the fused normalization exact.
+        pow2 = NormStats(lf_mean=ram.norm.lf_mean, lf_std=np.exp2(np.round(np.log2(
+            ram.norm.lf_std))).astype(np.float32), hf_mean=ram.norm.hf_mean,
+            hf_std=np.exp2(np.round(np.log2(ram.norm.hf_std))).astype(np.float32))
+        got = next(StreamingTrajectoryDataset(store, norm=pow2).traj_batches(d.seed, d.batch_size))
+        want = next(TrajectoryDataset(lf, hf, pow2).traj_batches(d.seed, d.batch_size))
+        check(all(np.array_equal(a, b) for a, b in zip(got, want)),
+              "the streamed first batch bit-equal to the RAM loader's")
+        got = next(StreamingTrajectoryDataset(store, norm=ram.norm).traj_batches(
+            d.seed, d.batch_size))
+        want = next(ram.traj_batches(d.seed, d.batch_size))
+        norm_err = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+        on_card = [torch.from_numpy(a).to(dev) for a in got]
+        check(all(torch.equal(c.cpu(), torch.from_numpy(a)) for c, a in zip(on_card, got)),
+              "the streamed batch uploaded to the card")
+        print(f"  first batch (ids {idx.tolist()}): raw and power-of-two-normalized gathers "
+              f"bit-equal to RAM; with the fixture's constants max abs err {norm_err:.3e} "
+              f"(tol {STREAM_TOL_NORM})",
+              flush=True)
+        check(norm_err <= STREAM_TOL_NORM, "the streamed first batch on the store's constants")
+        store.close()
+
+        # Streamed training through the CLI on the store's own constants,
+        # one epoch, K2 launches counted. Then one epoch each of the Trainer on the
+        # stream and on RAM (device-resident) with the power-of-two
+        # constants, whose inputs are bit-equal: on the store's own
+        # constants RAM's (x - mean) / std and the store's fused product
+        # round an input an ulp apart, and the bf16 nets carry that to
+        # ~3e-5 of epoch 1's bpd (PERF.md §6).
+        coupling_fused.launches = 0
+        final = train_main(["backward-step", *TRAIN_ARGS, *overrides, "data.synthetic=false",
+                            "data.loader=stream", f"data.data_dir={tmp}",
+                            f"train.checkpoint_dir={tmp}/cli", "train.epochs=1",
+                            "--device", dev.type])
+        torch.cuda.synchronize()
+        cli = dict(final=final, launches=coupling_fused.launches)
+        runs = {}
+        for name in ("stream", "ram"):
+            store = TPFStore(f"{tmp}/backward-step_train.tpf")
+            ds = (StreamingTrajectoryDataset(store, norm=pow2) if name == "stream"
+                  else TrajectoryDataset(lf, hf, pow2))
+            rcfg = load_case("backward-step", parse_cli_overrides(
+                [*TRAIN_ARGS, *overrides, f"train.checkpoint_dir={tmp}/{name}", "train.epochs=1"]))
+            logger = MetricsLogger(f"{tmp}/{name}/backward-step/train_log.csv", quiet=True)
+            trainer = Trainer(rcfg, dataset=ds, logger=logger, device=dev)
+            check(trainer._resident == (name == "ram"), f"{name} residency")
+            trainer.init_or_resume()
+            last = trainer.run()
+            logger.close()
+            store.close()
+            with open(f"{tmp}/{name}/backward-step/train_log.csv") as f:
+                bpds = [float(r["bpd"]) for r in csv.DictReader(f)]
+            runs[name] = dict(final=last, epoch1_bpd=sum(bpds) / len(bpds))
+    s, r = runs["stream"], runs["ram"]
+    n_windows = (d.n_train_traj // d.batch_size) * (d.train_steps // d.window)
+    per_step = mc.n_scales * mc.n_flow_steps
+    expected = per_step * (1 + d.window * n_windows)
+    rel = abs(s["epoch1_bpd"] - r["epoch1_bpd"]) / abs(r["epoch1_bpd"])
+    print(f"  CLI, data.loader=stream: epoch {cli['final']['epoch']}, "
+          f"{cli['final']['windows_per_sec']:.3f} windows/s in epoch 1 (bf16, batch "
+          f"8) [{SMI[0]}]; K2 launches {cli['launches']} (expected {expected})", flush=True)
+    print(f"  Trainer, epoch 1 on the power-of-two constants: mean bpd stream "
+          f"{s['epoch1_bpd']:.7f} vs RAM {r['epoch1_bpd']:.7f} (rel err {rel:.3e}, tol "
+          f"{STREAM_TOL_BPD}); windows/s stream {s['final']['windows_per_sec']:.3f} / RAM "
+          f"(device-resident) {r['final']['windows_per_sec']:.3f} [{SMI[0]}]", flush=True)
+    check(rel <= STREAM_TOL_BPD, "streamed epoch 1 against RAM")
+    check(cli["launches"] == expected and cli["final"]["epoch"] == 1
+          and math.isfinite(cli["final"]["mean_bpd"]),
+          "K2 launches of streamed training through the CLI")
+    res.update(native=native, h5=archive == "h5", norm_max_abs_err=norm_err,
+               epoch1_bpd_rel_err=rel, launches=cli["launches"],
+               cli_windows_per_sec=cli["final"]["windows_per_sec"],
+               stream_windows_per_sec=s["final"]["windows_per_sec"],
+               ram_windows_per_sec=r["final"]["windows_per_sec"])
+    return res
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=16,
                     help="rollout steps of the main-path run (default 16)")
+    # A rank of the "data parallel" phase, started by the script itself.
+    ap.add_argument("--dp-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-port", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -1494,6 +1934,8 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repo ({e})", file=sys.stderr)
         return 1
+    if args.dp_rank is not None:
+        return dp_worker(args.dp_rank, args.dp_port, args.dp_dir)
 
     with phase("device"):
         dev = resolve_device("cuda")
@@ -1585,13 +2027,24 @@ def main() -> int:
     with phase("finetune"):
         finetuned = finetune_phase(case, dev)
 
+    with phase("data parallel"):
+        parallel = data_parallel_phase(dev)
+
+    with phase("split"):
+        split = split_phase(cfg, dev, args.steps)
+
+    with phase("stream"):
+        streamed = stream_phase(dev)
+
     k2["launches"] = launches
     k2["max_abs_err"] = max(k2["max_abs_err"], cyl["max_abs_err"],
                             evaluated.pop("k2_parity_max_abs_err"),
-                            finetuned.pop("k2_parity_max_abs_err"))
+                            finetuned.pop("k2_parity_max_abs_err"), split.pop("max_abs_err"))
     k2["launches_by_path"] = {"rollout": launches, "train": train.pop("launches")}
+    k2["launches_by_path"]["data_parallel_nccl"] = parallel.pop("nccl_launches")
     for name, res in (("rollout_cli", cli), ("cylinder", cyl), ("batched", batched),
-                      ("redraw", redraw), ("evaluate", evaluated), ("finetune", finetuned)):
+                      ("redraw", redraw), ("evaluate", evaluated), ("finetune", finetuned),
+                      ("data_parallel", parallel), ("split", split), ("stream", streamed)):
         k2["launches_by_path"][name] = res.pop("launches")
         k2[name] = res
     k2["train"] = train

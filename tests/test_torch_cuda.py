@@ -6,7 +6,10 @@ rollouts, K2 under autograd and a training window against the CPU; the
 fine-tune (K2 forward and reverse under autograd, at the members' batch
 too) against the CPU and with remat against without; the coupling apply
 (K1) against its plain version, forward, reverse, gradients and
-determinism.
+determinism; the member split of the rollout over a mesh of two entries
+on the one card, and over two cards where the host has them, against the
+flat rollout; a streamed .tpf batch uploaded
+to the card against the RAM batch.
 
 These tests need an NVIDIA GPU and ``nvcc`` and skip elsewhere (the CUDA
 kernel has no CPU or interpret mode). This file imports neither JAX nor
@@ -30,6 +33,8 @@ The evaluator's statistics and calibration maps (``eval/stats.py``,
 ``eval/calibrate.py``) on CUDA tensors against the same functions on the
 CPU: 1e-5 relative, 1e-6 absolute near 0; histogram counts exact.
 """
+
+import shutil
 
 import numpy as np
 import pytest
@@ -590,3 +595,80 @@ def test_cuda_stratified_quantile_map_matches_cpu(cuda_device):
     vals = _np(rng, (128, 64, 8, 64), 2.0)
     got = tcal.apply_quantile_map_stratified(vals.to(cuda_device), *fit_g)
     _close_cpu(got, tcal.apply_quantile_map_stratified(vals, *fit_c), atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("collect", ["stats", "fields"])
+def test_cuda_split_rollout_matches_flat(cuda_device, collect):
+    """The member split over a mesh of [cuda, cuda] (two chunks, the second
+    on a replica) against the flat rollout on one generator, both through
+    K2: the same draws reach the same members, and only the chunks' batch
+    sizes differ, 1e-5 x max(1, max |ref|) at f32."""
+    from tpuflow_torch.train.mesh import make_mesh
+
+    model = TMGlow(ModelConfig(**SMALL), device=cuda_device, seed=0)
+    perturb_(model, 1, scale=0.05)
+    n, steps = 8, 3
+    lf = torch.randn(steps, 4, 8, 3, generator=torch.Generator().manual_seed(3)).to(cuda_device)
+    mesh = make_mesh(1, 2, devices=[cuda_device, cuda_device])
+    split = make_ensemble_rollout(model, n, 0.85, collect, mesh=mesh)
+    flat = make_ensemble_rollout(model, n, 0.85, collect)
+    before = tk.launches
+    got = split(lf, torch.Generator(cuda_device).manual_seed(4))
+    assert tk.launches - before == 2 * steps * SMALL["n_scales"] * SMALL["n_flow_steps"]
+    want = flat(lf, torch.Generator(cuda_device).manual_seed(4))
+    pairs = [(got, want)] if collect == "fields" else [(got[k], want[k]) for k in want]
+    for g, w in pairs:
+        assert g.device == w.device and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-5 * max(1.0, w.abs().max().item()))
+
+
+@pytest.mark.cuda
+def test_cuda_split_rollout_over_two_cards(cuda_device):
+    """The member split over two cards at the backward-step preset's full
+    width, bf16 (K2's shared memory above 48 KB must be allowed on each
+    card it launches on), against the flat rollout on one generator: 5e-3
+    x max(1, max |ref|), the bf16 tolerance."""
+    from tpuflow_torch.train.mesh import make_mesh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs: the split over two cards")
+    cfg = load_case("backward-step").model
+    model = TMGlow(cfg, device=torch.device("cuda", 0), seed=0)
+    perturb_(model, 1)
+    lf = torch.randn(2, *cfg.lf_shape, cfg.channels,
+                     generator=torch.Generator().manual_seed(3)).to(model.device)
+    devices = [torch.device("cuda", i) for i in range(2)]
+    split = make_ensemble_rollout(model, 8, 0.85, mesh=make_mesh(1, 2, devices=devices))
+    flat = make_ensemble_rollout(model, 8, 0.85)
+    got = split(lf, torch.Generator(model.device).manual_seed(4))
+    want = flat(lf, torch.Generator(model.device).manual_seed(4))
+    for k in want:
+        assert bool(torch.isfinite(got[k]).all())
+        torch.testing.assert_close(got[k], want[k], rtol=0,
+                                   atol=5e-3 * max(1.0, want[k].abs().max().item()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_native", [True, False])
+def test_cuda_tpf_batch_on_the_card_equals_ram(cuda_device, tmp_path, use_native):
+    """A streamed batch uploaded to the card is the RAM batch, bit for bit
+    where the normalization's stds are powers of two."""
+    from tpuflow_torch.data import NormStats, TrajectoryDataset
+    from tpuflow_torch.data.tpf import StreamingTrajectoryDataset, TPFStore, save_tpf
+
+    if use_native and shutil.which("g++") is None:
+        pytest.skip("no g++ here: the native loader cannot build")
+    rng = np.random.default_rng(5)
+    lf = rng.normal(size=(4, 6, 4, 8, 3)).astype(np.float32)
+    hf = rng.normal(size=(4, 6, 16, 32, 3)).astype(np.float32)
+    norm = NormStats(lf_mean=lf.mean(axis=(0, 1, 2, 3)), lf_std=np.array([1, 2, 4], np.float32),
+                     hf_mean=hf.mean(axis=(0, 1, 2, 3)), hf_std=np.array([2, 1, 0.5], np.float32))
+    ram = TrajectoryDataset(lf, hf, norm)
+    with TPFStore(save_tpf(tmp_path / "s.tpf", lf, hf), use_native=use_native) as store:
+        assert store.native == use_native
+        stream = StreamingTrajectoryDataset(store, norm=norm)
+        for (lf_s, hf_s), (lf_r, hf_r) in zip(stream.traj_batches(0, 2), ram.traj_batches(0, 2)):
+            for s, r in ((lf_s, lf_r), (hf_s, hf_r)):
+                on_card = torch.from_numpy(s).to(cuda_device)
+                assert torch.equal(on_card.cpu(), torch.from_numpy(r))

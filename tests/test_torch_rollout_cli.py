@@ -58,8 +58,10 @@ def test_cli_rollout_writes_stats_and_metrics(trained, capsys):
     metrics = rollout_main(_args(trained))
     assert "LF input wrap-tiled" in capsys.readouterr().out  # 6 steps > 4 stored
     stats, saved = _outputs(trained)
-    assert set(saved) == JAX_METRICS_KEYS and saved == metrics
+    # The port adds how many devices the members split over.
+    assert set(saved) == JAX_METRICS_KEYS | {"devices"} and saved == metrics
     assert saved["steps"] == 6 and saved["n_samples"] == 3 and saved["backend"] == "cpu"
+    assert saved["devices"] == 1
     assert saved["temperature"] == 0.85 and saved["rollout_steps_per_sec"] > 0
     assert set(stats.files) == {"mean", "var"}
     for k in ("mean", "var"):

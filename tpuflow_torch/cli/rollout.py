@@ -8,7 +8,14 @@ one), resolves the deployed temperature (``eval.temperature_scales`` >
 the checkpoint's ``learned_tau`` > ``eval.temperature``) and rolls the
 model ``eval.rollout_steps`` steps with ``eval.n_samples`` members over
 the first test-split LF trajectory, once as a warm-up and once timed
-(traced into ``eval.trace_dir`` if set). A horizon longer than the
+(traced into ``eval.trace_dir`` if set). On a host with several GPUs the
+members split over all of them when ``eval.n_samples`` divides by their
+count (``make_ensemble_rollout(mesh=)``), as the JAX CLI shards them;
+otherwise, and on the CPU, the rollout runs flat on one device. One host
+thread issues every card's launches, so the split pays only for large
+ensembles: on four NVIDIA H100 80GB HBM3 (700 W) it ran 0.24x the flat
+rate at 64 members and 1.4x at 1024 (``tools/multi_gpu.py``); set
+``CUDA_VISIBLE_DEVICES`` to one card to run flat. A horizon longer than the
 stored trajectory wrap-tiles the LF input; the HF comparisons use only
 the stored frames. It writes to ``eval.output_dir/<case>``:
 
@@ -17,7 +24,8 @@ the stored frames. It writes to ``eval.output_dir/<case>``:
     or ``eval.spread_field`` is set;
   * ``rollout_metrics.json``: ``rollout_steps_per_sec`` (and its
     ``_seconds``), ``steps``, ``n_samples``, ``temperature``, ``backend``
-    (the torch device type);
+    (the torch device type), ``devices`` (how many the members split
+    over);
   * the figures of ``tpuflow/cli/rollout.py``: prediction panels at
     t in {0, t_ref/2, t_ref - 1}, TKE, profiles, probes, vorticity, and
     the member samples of a fields-mode rollout of min(8, N) members to
@@ -41,9 +49,29 @@ from tpuflow_torch.data.dataset import load_dataset
 from tpuflow_torch.eval.loading import load_eval_bundle, resolve_temperature
 from tpuflow_torch.eval.rollout import make_ensemble_rollout
 from tpuflow_torch.eval.stats import tke_field, total_variance, vorticity
+from tpuflow_torch.train.mesh import make_mesh
 from tpuflow_torch.utils.profiling import force_completion, step_timer, trace_context
 
 PROG = "python -m tpuflow_torch.cli.rollout"
+
+
+def visible_devices(dev: torch.device) -> list[torch.device]:
+    """``dev`` first, then every other visible device of its type (the
+    CPU counts as one)."""
+    if dev.type != "cuda":
+        return [dev]
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    others = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev] + [d for d in others if d != dev]
+
+
+def member_mesh(devices: list, n_samples: int):
+    """The mesh that splits ``n_samples`` members over ``devices``, or None
+    (run flat) with one device or where the count does not divide."""
+    if len(devices) < 2 or n_samples % len(devices):
+        return None
+    return make_mesh(1, len(devices), devices=devices)
 
 
 def rollout(cfg: CaseConfig, device: str | torch.device = "cuda") -> tuple[dict, list]:
@@ -66,8 +94,9 @@ def rollout(cfg: CaseConfig, device: str | torch.device = "cuda") -> tuple[dict,
         lf_traj = ds.lf[0, :T]
     t_ref = min(T, n_avail)
 
+    mesh = member_mesh(visible_devices(dev), cfg.eval.n_samples)
     run = make_ensemble_rollout(model, cfg.eval.n_samples, temperature, "stats",
-                                overflow_redraw=cfg.eval.overflow_redraw)
+                                overflow_redraw=cfg.eval.overflow_redraw, mesh=mesh)
     lf_dev = torch.from_numpy(lf_traj).to(dev)
     # Warm-up (cuDNN plans, the allocator, the kernel's first build), then
     # the timed run.
@@ -137,6 +166,7 @@ def rollout(cfg: CaseConfig, device: str | torch.device = "cuda") -> tuple[dict,
         temperature=(temperature.tolist() if isinstance(temperature, torch.Tensor)
                      else float(temperature)),
         backend=dev.type,
+        devices=1 if mesh is None else mesh.size,
     )
     (out_dir / "rollout_metrics.json").write_text(json.dumps(metrics, indent=2))
     return metrics, figures

@@ -94,6 +94,11 @@ class DataConfig:
     fixture_version: int = 3
     # Keep the whole training split on the device and gather batches
     # there by index, when it fits device_resident_max_gb.
+    # Training-split loading: "ram" loads the whole archive; "stream"
+    # serves trajectory batches from {case}_train.tpf through the native
+    # loader (data/tpf.py), with the normalization fused into the gather
+    # and the next batch prefetched (host RAM O(batch)).
+    loader: str = "ram"
     device_resident: bool = True
     device_resident_max_gb: float = 4.0
     seed: int = 0
@@ -120,6 +125,10 @@ class TrainConfig:
     # memory of one timestep for a second forward. Off by default, as in
     # the JAX presets.
     remat: bool = False
+    # Accepted for parity with the JAX package's configs and inert, as
+    # model.conv_layout is: the port always runs every window of a
+    # trajectory batch in order (train/step.trajectory_train_step).
+    fused_windows: bool = True
     checkpoint_dir: str = "./checkpoints"
     checkpoint_every: int = 10
     # Save a sample-vs-target figure every N epochs (0 = off); needs
@@ -130,6 +139,11 @@ class TrainConfig:
     # Log a metrics row every N global steps (0 = off).
     log_every: int = 10
     seed: int = 42
+    # Process mesh of a torchrun launch: data x ensemble processes
+    # (train/mesh.py); -1 on data means world // mesh_ensemble. Ranks
+    # sharing a data index train on the same rows.
+    mesh_data: int = -1
+    mesh_ensemble: int = 1
     # Raise FloatingPointError at the first module whose output is not
     # finite (forward hooks), with autograd's anomaly mode for the
     # backward. Each check waits on the device.

@@ -1,15 +1,19 @@
 """Trajectory dataset: normalization, trajectory batching, BPTT windows.
 
-Counterpart of ``tpuflow/data/dataset.py`` for the synthetic and
-``.npz`` routes. The training loop iterates shuffled trajectory batches
-and, within a batch, consecutive time windows, so that the ConvLSTM
-state carries across windows (truncated BPTT). Normalization is
+Counterpart of ``tpuflow/data/dataset.py``. The training loop iterates
+shuffled trajectory batches and, within a batch, consecutive time
+windows, so that the ConvLSTM state carries across windows (truncated
+BPTT). Normalization is
 per-channel mean and standard deviation (ddof 0, as ``np.std``) over
 the training split, applied identically to every split.
 
-An archive is ``{data_dir}/{case}_{split}.npz`` with arrays ``lf``
-(N, T, h, w, C) and ``hf`` (N, T, H, W, C). Arrays stay NumPy here; the
-trainer moves them to the device.
+An archive is ``{data_dir}/{case}_{split}`` with suffix ``.h5``, ``.hdf5``,
+``.npz`` or ``.tpf`` (looked for in that order), holding arrays ``lf``
+(N, T, h, w, C) and ``hf`` (N, T, H, W, C); ``h5py`` is imported only
+when an HDF5 file is read or written. ``data.loader=stream`` serves the
+training split from ``{case}_train.tpf`` through the native loader
+(``data/tpf.py``) instead of RAM. Arrays stay NumPy here; the trainer
+moves them to the device.
 """
 
 from __future__ import annotations
@@ -108,10 +112,12 @@ class TrajectoryDataset:
         for i in range(0, len(order) - (batch_size - 1 if drop_remainder else 0), batch_size):
             yield order[i : i + batch_size]
 
-    def traj_batches(self, seed: int, batch_size: int, drop_remainder: bool = True):
-        """Yield shuffled (lf, hf) trajectory batches (B, T, ...)."""
+    def traj_batches(self, seed: int, batch_size: int, drop_remainder: bool = True,
+                     rows: slice = slice(None)):
+        """Yield shuffled (lf, hf) trajectory batches (B, T, ...); ``rows``
+        selects rows of each batch (a data-parallel rank's share)."""
         for idx in self.batch_indices(seed, batch_size, drop_remainder):
-            yield self.lf[idx], self.hf[idx]
+            yield self.lf[idx[rows]], self.hf[idx[rows]]
 
     @staticmethod
     def windows(lf_batch, hf_batch, window: int):
@@ -129,25 +135,68 @@ class TrajectoryDataset:
             yield lf_batch[:, w0 : w0 + window], hf_batch[:, w0 : w0 + window]
 
 
+_SUFFIXES = (".h5", ".hdf5", ".npz", ".tpf")
+
+
+def _h5py(path: pathlib.Path):
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(f"{path}: reading or writing HDF5 archives needs h5py") from e
+    return h5py
+
+
 def load_archive(path: str | pathlib.Path) -> tuple[np.ndarray, np.ndarray]:
-    """Read an (lf, hf) trajectory archive (``.npz``)."""
+    """Read an (lf, hf) trajectory archive (.h5/.hdf5, .npz or .tpf)."""
     path = pathlib.Path(path)
-    if path.suffix != ".npz":
-        raise ValueError(
-            f"unsupported archive {path}: the port reads .npz (.h5 and .tpf are "
-            "not ported yet)"
-        )
-    with np.load(path) as f:
-        return f["lf"], f["hf"]
+    if path.suffix in (".h5", ".hdf5"):
+        with _h5py(path).File(path, "r") as f:
+            return np.asarray(f["lf"]), np.asarray(f["hf"])
+    if path.suffix == ".npz":
+        with np.load(path) as f:
+            return f["lf"], f["hf"]
+    if path.suffix == ".tpf":
+        from tpuflow_torch.data.tpf import TPFStore
+
+        with TPFStore(path) as store:
+            everything = np.arange(store.n_traj)
+            return (store.read_batch("lf", everything, 0, store.n_steps),
+                    store.read_batch("hf", everything, 0, store.n_steps))
+    raise ValueError(f"unsupported archive {path} (want .h5/.hdf5/.npz/.tpf)")
+
+
+def save_archive(path: str | pathlib.Path, lf: np.ndarray, hf: np.ndarray) -> None:
+    """Write an (lf, hf) trajectory archive; the suffix picks the format
+    (.h5/.hdf5 gzip-compressed, .npz compressed, .tpf)."""
+    path = pathlib.Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if path.suffix in (".h5", ".hdf5"):
+        with _h5py(path).File(path, "w") as f:
+            f.create_dataset("lf", data=lf, compression="gzip")
+            f.create_dataset("hf", data=hf, compression="gzip")
+        return
+    if path.suffix == ".npz":
+        np.savez_compressed(path, lf=lf, hf=hf)
+        return
+    if path.suffix == ".tpf":
+        from tpuflow_torch.data.tpf import save_tpf
+
+        save_tpf(path, lf, hf)
+        return
+    raise ValueError(f"unsupported archive {path} (want .h5/.hdf5/.npz/.tpf)")
 
 
 def find_archive(root: pathlib.Path, case: str, split: str) -> pathlib.Path:
-    p = pathlib.Path(root) / f"{case}_{split}.npz"
-    if not p.exists():
-        raise FileNotFoundError(
-            f"no archive {p}; set data.synthetic=true for the procedural fixture"
-        )
-    return p
+    """``{root}/{case}_{split}`` with the first suffix found of .h5, .hdf5,
+    .npz, .tpf."""
+    for suffix in _SUFFIXES:
+        p = pathlib.Path(root) / f"{case}_{split}{suffix}"
+        if p.exists():
+            return p
+    raise FileNotFoundError(
+        f"no archive {root}/{case}_{split}.(h5|hdf5|npz|tpf); "
+        "set data.synthetic=true for the procedural fixture"
+    )
 
 
 def load_dataset(
@@ -159,9 +208,11 @@ def load_dataset(
     """The dataset of ``split``, as the JAX package's ``load_dataset``.
 
     Synthetic mode generates from the config seed (the test split from
-    ``seed + 10000``); archive mode reads ``{data_dir}/{case}_{split}.npz``.
-    Without ``norm``, every split is normalized with the train split's
-    constants.
+    ``seed + 10000``); archive mode reads ``{data_dir}/{case}_{split}``
+    (:func:`find_archive`). With ``data.loader=stream`` the train split is
+    a :class:`~tpuflow_torch.data.tpf.StreamingTrajectoryDataset` over
+    ``{case}_train.tpf``. Without ``norm``, every split is normalized with
+    the train split's constants.
     """
     if data_cfg.synthetic:
         n = data_cfg.n_train_traj if split == "train" else data_cfg.n_test_traj
@@ -181,6 +232,20 @@ def load_dataset(
         return TrajectoryDataset(lf, hf, norm=norm)
 
     root = pathlib.Path(data_cfg.data_dir)
+    if data_cfg.loader == "stream" and split == "train":
+        from tpuflow_torch.data.tpf import StreamingTrajectoryDataset, TPFStore
+
+        # The store itself, not find_archive: the archive it was converted
+        # from may sit in the same directory.
+        path = root / f"{data_cfg.case}_train.tpf"
+        if not path.exists():
+            raise FileNotFoundError(
+                f"data.loader=stream needs {path}; convert an archive with "
+                "python -m tpuflow_torch.tools.convert_tpf"
+            )
+        return StreamingTrajectoryDataset(TPFStore(path), norm=norm)
+    if data_cfg.loader not in ("ram", "stream"):
+        raise ValueError(f"unknown data.loader {data_cfg.loader!r}")
     if norm is None:
         lf_tr, hf_tr = load_archive(find_archive(root, data_cfg.case, "train"))
         norm = NormStats.from_data(lf_tr, hf_tr)

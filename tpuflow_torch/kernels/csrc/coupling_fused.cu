@@ -75,6 +75,7 @@ constexpr int kWarpN = 32;            // bf16 path: columns per warp (4 x n8)
 constexpr int kMaxMmaThreads = 512;   // bf16 path: 16 warps at most
 constexpr int kMaxSmem = 232448;      // 227 KB, the most a block may use
 constexpr int kRing = 3;              // bf16 path: one-tap weight buffers
+constexpr int kMaxDevices = 64;       // cards one process may launch on
 
 typedef __nv_bfloat16 bf16;
 
@@ -705,15 +706,21 @@ cudaError_t launch_mma(const Plan& p, int B, cudaStream_t stream,
                        float* acc, int first,
                        const float* xa, const float* xb, float* y,
                        float* ld_part, int ca, int cb, int reverse) {
-  // Above 48 KB a block's dynamic shared memory must be allowed first;
-  // done once per instantiation, at its first launch.
-  static bool allowed = false;
-  if (!allowed) {
-    cudaError_t err = cudaFuncSetAttribute(
+  // Above 48 KB a block's dynamic shared memory must be allowed first, on
+  // each device (a function's attributes belong to one device's context:
+  // a process that drives several cards launches on each); done once per
+  // instantiation and device, at its first launch there.
+  static bool allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!allowed[dev]) {
+    err = cudaFuncSetAttribute(
         conv3x3_mma_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kMaxSmem);
     if (err != cudaSuccess) return err;
-    allowed = true;
+    allowed[dev] = true;
   }
   const int threads = p.warps_m * p.warps_n * 32;
   const bool buffers = (p.taps == 9 && p.nbuf == 1) || (p.taps == 1 && p.nbuf == kRing);

@@ -11,6 +11,17 @@ each timestep runs under ``torch.utils.checkpoint`` (the counterpart of
 ``jax.checkpoint``), so the backward recomputes that timestep's
 activations instead of keeping the whole window's.
 
+Data parallelism (``train/mesh.py``): where a process group of more than
+one rank is initialized, each rank's window covers its rows of the batch,
+and between the backward and the clip the gradients and the window's bpd
+are averaged over the ranks in one flattened all-reduce, the psum-mean
+that XLA inserts for the JAX package's data axis. The clip therefore
+sees the global gradient and every rank applies the same update. The
+step takes ``torch.autograd.grad``, which fires no ``AccumulateGrad``
+hook, and the loss runs ``model.nll_step``, not ``forward``, so
+``DistributedDataParallel``'s reducer would never run here. One process
+issues no collective.
+
 The optimizer matches the JAX package's optax chain
 ``clip_by_global_norm -> [add_decayed_weights] -> adam(schedule)``:
 
@@ -33,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tpuflow_torch.data.dataset import TrajectoryDataset
 from tpuflow_torch.models.tmglow import LSTMState, TMGlow, init_lstm_state
+from tpuflow_torch.train.mesh import all_reduce_mean_
 
 
 def remat_step(fn: Callable, remat: bool) -> Callable:
@@ -109,19 +121,23 @@ def train_step(
     state: LSTMState,
     remat: bool = False,
 ) -> tuple[LSTMState, dict[str, torch.Tensor]]:
-    """One window: loss, backward, clip, Adam step. Returns the final
-    state (detached: its value carries, its gradient does not) and
-    {"bpd", "grad_norm"} (the norm before the clip), as 0-d tensors."""
+    """One window: loss, backward, the average over the ranks (with a
+    process group), clip, Adam step. Returns the final state (detached: its
+    value carries, its gradient does not) and {"bpd", "grad_norm"} (the
+    norm before the clip), as 0-d tensors; with a process group both are
+    the global values."""
     params = [p for p in model.parameters() if p.requires_grad]
     loss, state = window_bpd_fn(model, remat)(lf_win, hf_win, state)
-    grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
-    norm = clip_by_global_norm_(list(grads), grad_clip)
+    grads = list(torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True))
+    bpd = loss.detach()
+    all_reduce_mean_([*grads, bpd.view(1)])
+    norm = clip_by_global_norm_(grads, grad_clip)
     for p, g in zip(params, grads):
         p.grad = g
     optimizer.step()
     scheduler.step()
     state = tuple((h.detach(), c.detach()) for h, c in state)
-    return state, {"bpd": loss.detach(), "grad_norm": norm}
+    return state, {"bpd": bpd, "grad_norm": norm}
 
 
 def trajectory_train_step(

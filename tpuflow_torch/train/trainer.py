@@ -1,17 +1,32 @@
 """Trainer: epoch loop over trajectory batches, truncated-BPTT windows,
-validation and checkpoints, on one device.
+validation and checkpoints, on one device per process.
 
-Counterpart of ``tpuflow/train/trainer.py`` on a single device (no mesh).
-A fresh run builds the model from ``train.seed`` and initialises its
-ActNorms from the first real trajectory batch (``TMGlow.data_init``, the
-counterpart of ``model.init`` on that batch); a run whose checkpoint
-directory holds a step resumes from it. Each trajectory batch runs every
-window of :func:`~tpuflow_torch.train.step.trajectory_train_step`. When
-the training split fits ``data.device_resident_max_gb``, it is moved to
-the device once and batches are gathered there by index, as the JAX
-package's default path does; otherwise each batch is uploaded. Every
+Counterpart of ``tpuflow/train/trainer.py``. A fresh run builds the model
+from ``train.seed`` and initialises its ActNorms from the first real
+trajectory batch (``TMGlow.data_init``, the counterpart of ``model.init``
+on that batch); a run whose checkpoint directory holds a step resumes
+from it. Each trajectory batch runs every window of
+:func:`~tpuflow_torch.train.step.trajectory_train_step`. When an in-RAM
+training split fits ``data.device_resident_max_gb``, it is moved to the
+device once and batches are gathered there by index, as the JAX
+package's default path does; otherwise each batch is uploaded (a
+streamed ``.tpf`` split never goes resident). Every
 ``train.log_every``-th window logs its bpd and its gradient norm before
 the clip (a logged row waits for the device; other windows do not).
+
+Data parallelism (``train/mesh.py``): under ``torchrun`` with a process
+group of ``train.mesh_data`` x ``train.mesh_ensemble`` ranks
+(``mesh_data=-1``: world // mesh_ensemble), every rank walks the same
+seeded batch order and trains on its rows of each batch; the step
+averages gradients and bpd over the ranks. The JAX trainer shrinks an
+automatic data axis to a divisor of the batch; a process group cannot
+shrink, so a data size that does not divide ``data.batch_size``, or an
+explicit mesh that is not the world, raises ``ValueError``. ActNorm's
+init runs on the full first batch on every rank, as JAX initialises on
+the unsharded batch, and one collective then checks that the ranks hold
+the same parameters (after a resume too). Rank 0 alone writes
+checkpoints, the metrics log, plots and validation rows; every rank
+reads a resume.
 
 The training options of the JAX trainer:
 
@@ -45,10 +60,12 @@ import torch
 from torch import nn
 
 from tpuflow_torch.configs.config import CaseConfig
-from tpuflow_torch.data.dataset import TrajectoryDataset, find_archive, load_dataset
+from tpuflow_torch.data.dataset import NormStats, TrajectoryDataset, find_archive, load_dataset
+from tpuflow_torch.data.tpf import StreamingTrajectoryDataset
 from tpuflow_torch.device import resolve_device
 from tpuflow_torch.eval.rollout import make_nll_eval
 from tpuflow_torch.models.tmglow import TMGlow, init_lstm_state
+from tpuflow_torch.train import mesh as mesh_lib
 from tpuflow_torch.train.checkpoint import Checkpointer
 from tpuflow_torch.train.step import make_optimizer, trajectory_train_step
 from tpuflow_torch.utils.logging import MetricsLogger
@@ -77,20 +94,50 @@ def install_nan_hooks(model: nn.Module) -> list:
             for n, m in model.named_modules()]
 
 
+def trainer_mesh(cfg: CaseConfig) -> mesh_lib.Mesh:
+    """The (data, ensemble) mesh of the process group's ranks (one rank
+    without a group) from ``train.mesh_data`` and ``train.mesh_ensemble``;
+    raises ``ValueError`` where it is not the whole world or its data size
+    does not divide ``data.batch_size``."""
+    t, b = cfg.train, cfg.data.batch_size
+    world = mesh_lib.world_size()
+    if t.mesh_data != -1 and t.mesh_data * t.mesh_ensemble != world:
+        raise ValueError(
+            f"train.mesh_data={t.mesh_data} x train.mesh_ensemble={t.mesh_ensemble} covers "
+            f"{t.mesh_data * t.mesh_ensemble} ranks, but the process group has {world}: a "
+            "process group cannot shrink; set mesh_data=-1 or launch that many processes"
+        )
+    mesh = mesh_lib.make_mesh(t.mesh_data, t.mesh_ensemble, devices=list(range(world)))
+    if b % mesh.data:
+        raise ValueError(
+            f"data.batch_size={b} does not divide over the mesh's data size {mesh.data} "
+            f"({world} ranks / mesh_ensemble {t.mesh_ensemble}); a process group cannot "
+            "shrink to a divisor, so change the batch size or the number of processes"
+        )
+    return mesh
+
+
 class Trainer:
-    """NLL training for one case config on ``device`` (default ``"cuda"``)."""
+    """NLL training for one case config on ``device`` (default ``"cuda"``);
+    with a process group, this rank's share of data-parallel training."""
 
     def __init__(
         self,
         cfg: CaseConfig,
-        dataset: TrajectoryDataset | None = None,
+        dataset: TrajectoryDataset | StreamingTrajectoryDataset | None = None,
         logger: MetricsLogger | None = None,
         device: str | torch.device = "cuda",
     ):
         cfg.validate()
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = trainer_mesh(cfg)
+        self._rows = mesh_lib.data_sharding(self.mesh, cfg.data.batch_size)
+        self._main = mesh_lib.rank() == 0
         self.dataset = dataset or load_dataset(cfg.data, cfg.model, "train")
+        if self._main and isinstance(self.dataset, StreamingTrajectoryDataset):
+            store = self.dataset.store
+            print(f"streaming {store.path} (native loader: {store.native})")
         if cfg.data.window > self.dataset.n_steps:
             raise ValueError(
                 f"data.window={cfg.data.window} exceeds the dataset's trajectory "
@@ -116,9 +163,11 @@ class Trainer:
         )
         self.logger = logger or MetricsLogger()
         self.ckpt = Checkpointer(f"{cfg.train.checkpoint_dir}/{cfg.name}")
-        nbytes = self.dataset.lf.nbytes + self.dataset.hf.nbytes
         self._resident = (
-            cfg.data.device_resident and nbytes <= cfg.data.device_resident_max_gb * 2**30
+            cfg.data.device_resident
+            and isinstance(self.dataset, TrajectoryDataset)
+            and self.dataset.lf.nbytes + self.dataset.hf.nbytes
+            <= cfg.data.device_resident_max_gb * 2**30
         )
         self._split = None  # (lf, hf) on the device, moved once
         self._val = None
@@ -143,9 +192,15 @@ class Trainer:
             self.scheduler.load_state_dict(restored["scheduler"])
             self.epoch = int(restored["meta"]["epoch"])
             self.global_step = int(restored["meta"]["global_step"])
+            if isinstance(self.dataset, StreamingTrajectoryDataset):
+                # The checkpoint's constants are authoritative, and spare the
+                # store its full normalization sweep.
+                self.dataset.norm = NormStats.from_dict(
+                    {k: v.cpu() for k, v in restored["norm"].items()})
             print(f"resumed from epoch {self.epoch} (step {self.global_step})")
         else:
             self._fresh_init()
+        mesh_lib.assert_replicated(list(self.model.state_dict().values()))
         self._ready = True
 
     def _fresh_init(self) -> None:
@@ -177,9 +232,10 @@ class Trainer:
             return self._epoch_loop(epochs)
 
     def _batches(self, seed: int):
+        """This rank's rows of each trajectory batch, on the device."""
         b = self.cfg.data.batch_size
         if not self._resident:
-            for lf, hf in self.dataset.traj_batches(seed, b):
+            for lf, hf in self.dataset.traj_batches(seed, b, rows=self._rows):
                 yield torch.from_numpy(lf).to(self.device), torch.from_numpy(hf).to(self.device)
             return
         if self._split is None:
@@ -187,7 +243,7 @@ class Trainer:
                            torch.from_numpy(self.dataset.hf).to(self.device))
         lf_all, hf_all = self._split
         for idx in self.dataset.batch_indices(seed, b):
-            idx = torch.from_numpy(idx).to(self.device)
+            idx = torch.from_numpy(idx[self._rows]).to(self.device)
             yield lf_all[idx], hf_all[idx]
 
     def _epoch_loop(self, epochs: int) -> dict[str, Any]:
@@ -205,7 +261,7 @@ class Trainer:
                 for i in range(m["bpd"].shape[0]):
                     self.global_step += 1
                     every = cfg.train.log_every
-                    if every and self.global_step % every == 0:
+                    if self._main and every and self.global_step % every == 0:
                         self.logger.log(self.global_step, epoch=self.epoch,
                                         bpd=m["bpd"][i], grad_norm=m["grad_norm"][i])
             bpd = torch.cat([m["bpd"] for m in per_batch]).cpu()
@@ -216,6 +272,8 @@ class Trainer:
                 "mean_bpd": float(bpd.mean()),
                 "windows_per_sec": len(bpd) / dt,
             }
+            if not self._main:
+                continue
             if self.epoch % cfg.train.checkpoint_every == 0 or self.epoch == epochs:
                 self.save()
             if cfg.train.plot_every and self.epoch % cfg.train.plot_every == 0:
