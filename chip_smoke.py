@@ -57,7 +57,16 @@ and read just after:
   * the data tier: the training fixture written to .tpf (and .h5 where
     h5py is installed), the streamed first batch held to the RAM loader's,
     training through the CLI with ``data.loader=stream`` against a RAM run
-    of the same seed (phase "stream").
+    of the same seed (phase "stream");
+  * the serving artifact: the rollout exported with ``torch.export`` (K2 as
+    the registered operator ``tpuflow_torch::fused_coupling``) at f32 and
+    bf16, loaded, its stats held against the eager rollout on the same
+    seeded generator, served against eager steps/s, and one HTTP round
+    trip through ``tools/serve.py`` (phase "serve");
+  * the rollout tools at full width (``sweep_members``, ``probe_width`` at
+    coupling width 64 and 128 with K2 held against its plain version at
+    128, ``probe_tau_stability``, ``sweep_temperature.sweep``,
+    ``probe_spectrum``) and ``doctor`` (phase "tools").
 
 The rollout CLI and the evaluator draw their figures when matplotlib is
 installed, and the phases check the files; without it they run the
@@ -1910,6 +1919,248 @@ def stream_phase(dev, overrides=()) -> dict:
                ram_windows_per_sec=r["final"]["windows_per_sec"])
     return res
 
+# The "serve" phase: the served stats against the eager rollout on the same
+# seeded generator, relative to max(1, max |ref|). f32: the exported step
+# runs the eager step's kernels, so only a reordered reduction could move
+# a value; bf16: the conditioning's cuDNN convs may pick another
+# algorithm in another program and round a feature one ulp apart.
+SERVE_TOL = {"float32": 1e-5, "bfloat16": 5e-3}
+SERVE_PAIRS = 3  # served / eager timings, interleaved (a rate spreads in a call)
+
+
+def serve_phase(case, dev, steps: int) -> dict:
+    """The serving artifact (``tools/export_rollout.py``, ``tools/artifact.py``,
+    ``tools/serve.py``) at full backward-step width, 64 members, the seeded
+    init of "slice": exported on the card at f32 and bf16 (seconds and
+    bytes), loaded (seconds), its stats held against ``make_ensemble_rollout``
+    on a generator seeded the same way, denormalized, with K2 counted (24
+    launches per served step); at bf16 the served and eager steps/s timed in
+    SERVE_PAIRS interleaved pairs, and one HTTP round trip on localhost
+    (bytes against Content-Length, arrays against the direct call)."""
+    import dataclasses
+    import io
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from tpuflow_torch.data import NormStats, generate_case
+    from tpuflow_torch.eval import make_ensemble_rollout
+    from tpuflow_torch.kernels import coupling_fused, ops
+    from tpuflow_torch.models import TMGlow, perturb_
+    from tpuflow_torch.models.tmglow import scale_shapes
+    from tpuflow_torch.tools.artifact import load_artifact, write_artifact
+    from tpuflow_torch.tools.export_rollout import build_exported, sidecar
+    from tpuflow_torch.tools.serve import RolloutServer, make_http_server
+
+    mc = case.model
+    # The registered operator launches the kernel the wrapper launches:
+    # bit-equal at the rollout's shapes, both directions and net dtypes.
+    gen, c = torch.Generator().manual_seed(6), mc.channels
+    for l, (h, w) in enumerate(scale_shapes(mc)):
+        c = 4 * c if l == 0 else 2 * c
+        for dtype in (torch.float32, torch.bfloat16):
+            xs = random_coupling(N_MEMBERS, h, w, c // 2, mc.coupling_width, mc.growth_rate,
+                                 mc.coupling_layers, dtype, 1, gen, dev)
+            for reverse in (False, True):
+                a = ops.fused_coupling(*xs, reverse=reverse)
+                b = coupling_fused.fused_coupling(*xs, reverse=reverse)
+                check(all(torch.equal(u, v) for u, v in zip(a, b)),
+                      f"the operator against the wrapper at scale {l} {dtype} reverse={reverse}")
+    print(f"  tpuflow_torch::fused_coupling bit-equal to the wrapper at the {mc.n_scales} "
+          "scales' shapes, f32 and bf16, both directions", flush=True)
+
+    cfg = dataclasses.replace(case, eval=dataclasses.replace(
+        case.eval, rollout_steps=steps, n_samples=N_MEMBERS))
+    norm = NormStats.from_data(*generate_case("backward-step", 2, 4, mc.hf_shape, mc.lf_shape))
+    lf = torch.randn(steps, *mc.lf_shape, mc.channels,
+                     generator=torch.Generator().manual_seed(2)).to(dev)
+    tau = torch.full((mc.n_scales,), TAU, device=dev)
+    hf_std, hf_mean = (torch.from_numpy(a).to(dev) for a in (norm.hf_std, norm.hf_mean))
+    per_step = mc.n_scales * mc.n_flow_steps
+    res: dict = {"launches": 0}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        for dtype in ("float32", "bfloat16"):
+            cfg_d = dataclasses.replace(cfg, model=dataclasses.replace(mc, compute_dtype=dtype))
+            model = TMGlow(cfg_d.model, device=dev, seed=0)
+            perturb_(model, 1)
+            path = pathlib.Path(tmp) / dtype / "rollout.torchexport"
+            t0 = time.perf_counter()
+            exported = build_exported(cfg_d, model, norm)
+            nbytes = write_artifact(path, *exported)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            served = load_artifact(path)
+            load_s = time.perf_counter() - t0
+            served(lf, 3, tau)  # warm-up: cuDNN plans, the allocator
+            torch.cuda.synchronize()
+
+            coupling_fused.launches = 0
+            got = served(lf, 4, tau)
+            torch.cuda.synchronize()
+            launches = coupling_fused.launches
+            res["launches"] += launches
+            ref = make_ensemble_rollout(model, N_MEMBERS, tau, "stats")(
+                lf, torch.Generator(dev).manual_seed(4))
+            want = {"mean": ref["mean"] * hf_std + hf_mean, "var": ref["var"] * hf_std**2}
+            err = max((got[k] - want[k]).abs().max().item()
+                      / max(1.0, want[k].abs().max().item()) for k in want)
+            print(f"  {dtype}: exported in {export_s:.2f} s ({nbytes / 1e6:.1f} MB), loaded in "
+                  f"{load_s:.2f} s; {N_MEMBERS} members x {steps} steps served, K2 launches "
+                  f"{launches} (expected {per_step} x {steps}); served vs eager stats "
+                  f"{err:.3e} of max(1, max |ref|) (tol {SERVE_TOL[dtype]})", flush=True)
+            check(launches == per_step * steps, f"K2 launch count of the served {dtype} rollout")
+            check(all(bool(torch.isfinite(got[k]).all()) and tuple(got[k].shape)
+                      == (steps, *mc.hf_shape, mc.channels) for k in got), f"served {dtype} stats")
+            check(err <= SERVE_TOL[dtype], f"served {dtype} stats against the eager rollout")
+            res[dtype] = dict(export_s=export_s, load_s=load_s, bytes=nbytes, max_rel_err=err)
+        # bf16, the preset's nets: served against eager steps/s, interleaved.
+        eager = make_ensemble_rollout(model, N_MEMBERS, tau, "stats")
+        rates: dict = {"served": [], "eager": []}
+        for i in range(SERVE_PAIRS):
+            runs = (("served", lambda: served(lf, 10 + i, tau)),
+                    ("eager", lambda: eager(lf, torch.Generator(dev).manual_seed(10 + i))))
+            for name, run in runs:
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                rates[name].append(steps / (time.perf_counter() - t0))
+        ratio = sorted(s / e for s, e in zip(rates["served"], rates["eager"]))[SERVE_PAIRS // 2]
+        print(f"  bf16 steps/s, {SERVE_PAIRS} interleaved pairs: served "
+              f"{', '.join(f'{r:.3f}' for r in rates['served'])}; eager "
+              f"{', '.join(f'{r:.3f}' for r in rates['eager'])}; median served / eager "
+              f"{ratio:.3f} [{SMI[0]}]", flush=True)
+        res.update(served_steps_per_sec=rates["served"], eager_steps_per_sec=rates["eager"],
+                   served_over_eager=ratio)
+
+        # One HTTP round trip: the normalized input, so the server's program
+        # sees the direct call's input and generator seed.
+        path.with_suffix(".meta.json").write_text(json.dumps(sidecar(cfg_d, norm, TAU,
+                                                                     exported[2])))
+        server = RolloutServer(path, device=dev)
+        httpd = make_http_server(server, "127.0.0.1", 0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            buf = io.BytesIO()
+            np.savez(buf, lf=lf.cpu().numpy())
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{httpd.server_address[1]}/rollout?seed=4&normalized=1",
+                data=buf.getvalue(), method="POST")
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                body, length = resp.read(), int(resp.headers["Content-Length"])
+            http_s = time.perf_counter() - t0
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join()
+        with np.load(io.BytesIO(body)) as out:
+            http_err = max(float(np.abs(out[k] - got[k].cpu().numpy()).max()) for k in got)
+        print(f"  HTTP POST /rollout on localhost: {http_s:.3f} s, {len(body)} bytes "
+              f"(Content-Length {length}); against the direct call {http_err:.3e}", flush=True)
+        check(len(body) == length, "HTTP response bytes against Content-Length")
+        check(http_err <= SERVE_TOL["bfloat16"], "HTTP response against the direct call")
+        res.update(http_s=http_s, http_bytes=len(body))
+    return res
+
+
+def tools_phase(case, dev) -> dict:
+    """The rollout tools at full width, each with the K2 count set to 0 just
+    before it and read just after: ``sweep_members`` at 32 and 64 members;
+    ``probe_width`` at coupling width 64 and 128, after K2 is held against
+    its plain version at width 128 (new ca and width); on an exporter-format
+    checkpoint of the seeded init, ``probe_tau_stability`` on one tau and one
+    seed, ``sweep_temperature.sweep`` at two taus and ``probe_spectrum`` on an
+    8-step window; then ``doctor``, every check passing, the device's
+    included. Cut: 8 rollout steps (4 for the width probe), 2 test
+    trajectories of 8 steps, 4 calibration and 16 reference steps."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from tpuflow_torch.configs import load_case, parse_cli_overrides
+    from tpuflow_torch.kernels import coupling_fused
+    from tpuflow_torch.tools import (
+        doctor,
+        probe_spectrum,
+        probe_tau_stability,
+        probe_width,
+        sweep_members,
+        sweep_temperature,
+    )
+
+    per_step = case.model.n_scales * case.model.n_flow_steps
+    res: dict = {"launches": 0, "launches_by_tool": {}, "seconds": {}}
+
+    def run(name, fn, expected_steps, data_inits=0):
+        """``fn()`` with K2 counted: ``expected_steps`` rollout steps, and
+        ``data_inits`` forwards of the model (ActNorm's data init)."""
+        coupling_fused.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        res["seconds"][name] = time.perf_counter() - t0
+        n = coupling_fused.launches
+        res["launches_by_tool"][name] = n
+        res["launches"] += n
+        print(f"  {name}: {res['seconds'][name]:.2f} s, K2 launches {n} (expected {per_step} x "
+              f"({expected_steps} steps + {data_inits} data-init forwards))", flush=True)
+        check(n == per_step * (expected_steps + data_inits), f"K2 launch count of {name}")
+        return out
+
+    # 8 steps: a warm-up and 3 timed rollouts per width.
+    rows = run("sweep_members", lambda: sweep_members.sweep(case, (32, 64), 8, 3, dev), 2 * 4 * 8,
+               data_inits=1)
+    print(f"  members sweep: {rows} [{SMI[0]}]", flush=True)
+    check([r["members"] for r in rows] == [32, 64] and all(r["steps_per_sec"] > 0 for r in rows),
+          "sweep_members rows")
+    res["members_sweep"] = rows
+
+    res["k2_width128_max_abs_err"] = k2_parity(dataclasses.replace(case.model, coupling_width=128),
+                                               dev, N_MEMBERS)
+    rows = run("probe_width", lambda: [probe_width.probe("backward-step", w, 4, N_MEMBERS, tau=TAU,
+                                                         device=dev) for w in (64, 128)], 2 * 4 * 4,
+               data_inits=2)
+    print(f"  width probe: {rows} [{SMI[0]}]", flush=True)
+    check([r["coupling_width"] for r in rows] == [64, 128] and rows[1]["n_params"] > rows[0][
+        "n_params"] and all(r["backend"] == "cuda" for r in rows), "probe_width rows")
+    res["width_probe"] = rows
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        cfg = load_case("backward-step", parse_cli_overrides([
+            "data.n_train_traj=2", "data.n_test_traj=2", "data.train_steps=8",
+            "eval.rollout_steps=8", "eval.calibration_steps=4", "eval.ref_steps=16",
+            f"train.checkpoint_dir={tmp}"]))
+        seeded_source(cfg, f"{tmp}/backward-step")
+        rows = run("probe_tau_stability",
+                   lambda: probe_tau_stability.probe(cfg, [TAU], cfg.model.z_clip, 1, dev), 8)
+        check(len(rows) == 1 and len(rows[0]["max_abs_head"]) == 4, "probe_tau_stability row")
+        # Per tau: 2 trajectories x 8 stats steps and 2 x 4 fields steps.
+        rows = run("sweep_temperature",
+                   lambda: sweep_temperature.sweep(cfg, (0.5, TAU), dev), 2 * (2 * 8 + 2 * 4))
+        print(f"  temperature sweep: {rows}", flush=True)
+        check([r["temperature"] for r in rows] == [0.5, TAU] and all(
+            math.isfinite(r[k]) for r in rows for k in ("field_rel_l2", "tke_rel_l2",
+                                                        "gaussian_crps", "ensemble_std")),
+              "sweep_temperature rows")
+        grid = probe_spectrum.tau_grid(cfg.eval.temperature, cfg.model.n_scales)
+        rows = run("probe_spectrum", lambda: probe_spectrum.run_probe(cfg, 8, 8, dev),
+                   len(grid) * 8)
+        check([r["setting"] for r in rows] == [g[0] for g in grid], "probe_spectrum rows")
+
+    t0 = time.perf_counter()
+    doc = doctor.run_checks()
+    res["seconds"]["doctor"] = time.perf_counter() - t0
+    for name, c in doc["checks"].items():
+        print(f"  doctor {name}: {'PASS' if c['ok'] else 'FAIL'} {c['detail']}", flush=True)
+    check(all(c["ok"] for c in doc["checks"].values()), "every doctor check on the card")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=16,
@@ -2036,15 +2287,23 @@ def main() -> int:
     with phase("stream"):
         streamed = stream_phase(dev)
 
+    with phase("serve"):
+        served = serve_phase(case, dev, args.steps)
+
+    with phase("tools"):
+        tools = tools_phase(case, dev)
+
     k2["launches"] = launches
     k2["max_abs_err"] = max(k2["max_abs_err"], cyl["max_abs_err"],
                             evaluated.pop("k2_parity_max_abs_err"),
-                            finetuned.pop("k2_parity_max_abs_err"), split.pop("max_abs_err"))
+                            finetuned.pop("k2_parity_max_abs_err"), split.pop("max_abs_err"),
+                            tools.pop("k2_width128_max_abs_err"))
     k2["launches_by_path"] = {"rollout": launches, "train": train.pop("launches")}
     k2["launches_by_path"]["data_parallel_nccl"] = parallel.pop("nccl_launches")
     for name, res in (("rollout_cli", cli), ("cylinder", cyl), ("batched", batched),
                       ("redraw", redraw), ("evaluate", evaluated), ("finetune", finetuned),
-                      ("data_parallel", parallel), ("split", split), ("stream", streamed)):
+                      ("data_parallel", parallel), ("split", split), ("stream", streamed),
+                      ("serve", served), ("tools", tools)):
         k2["launches_by_path"][name] = res.pop("launches")
         k2[name] = res
     k2["train"] = train

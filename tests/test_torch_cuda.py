@@ -9,7 +9,10 @@ too) against the CPU and with remat against without; the coupling apply
 determinism; the member split of the rollout over a mesh of two entries
 on the one card, and over two cards where the host has them, against the
 flat rollout; a streamed .tpf batch uploaded
-to the card against the RAM batch.
+to the card against the RAM batch; K2 through its registered operator
+(``tpuflow_torch::fused_coupling``) bit-equal to the wrapper's launch, and
+a served artifact (``torch.export`` of the encoder and one step, exported
+on the card) against the rollout on the same seeded generator.
 
 These tests need an NVIDIA GPU and ``nvcc`` and skip elsewhere (the CUDA
 kernel has no CPU or interpret mode). This file imports neither JAX nor
@@ -672,3 +675,66 @@ def test_cuda_tpf_batch_on_the_card_equals_ram(cuda_device, tmp_path, use_native
             for s, r in ((lf_s, lf_r), (hf_s, hf_r)):
                 on_card = torch.from_numpy(s).to(cuda_device)
                 assert torch.equal(on_card.cpu(), torch.from_numpy(r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_registered_op_is_the_kernel(cuda_device, dtype, reverse):
+    """``torch.ops.tpuflow_torch.fused_coupling`` launches K2 once per call
+    (counted), bit-equal to the Python wrapper's launch, and holds against
+    the plain version at the kernel's tolerances."""
+    from tpuflow_torch.kernels import ops
+
+    tol_y, tol_ld = _TOL[dtype]
+    xa, xb, h0c, net = _case(_DT[dtype], cuda_device, h0c_batch=3)
+    before = tk.launches
+    y, ld = ops.fused_coupling(xa, xb, h0c, net, reverse=reverse)
+    torch.cuda.synchronize()
+    assert tk.launches == before + 1
+    y_fn, ld_fn = fused_coupling(xa, xb, h0c, net, reverse=reverse)
+    assert torch.equal(y, y_fn) and torch.equal(ld, ld_fn)
+    y_ref, ld_ref = fused_coupling_reference(xa, xb, h0c, net, reverse=reverse)
+    torch.testing.assert_close(y, y_ref, atol=tol_y, rtol=1e-5)
+    torch.testing.assert_close(ld, ld_ref, atol=tol_ld, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_served_artifact_equals_the_rollout(cuda_device, tmp_path):
+    """An artifact exported on the card (``torch.export`` of the encoder
+    and one step) serves the rollout of ``make_ensemble_rollout`` on a
+    generator seeded the same way, denormalized, at f32 within 1e-5 x
+    max(1, max |ref|), with K2 launched n_scales x n_flow_steps times per
+    step."""
+    import dataclasses
+
+    from tpuflow_torch.data import NormStats
+    from tpuflow_torch.tools.artifact import load_artifact, write_artifact
+    from tpuflow_torch.tools.export_rollout import build_exported
+
+    case = load_case("backward-step")
+    cfg = dataclasses.replace(case, model=ModelConfig(**SMALL),
+                              eval=dataclasses.replace(case.eval, rollout_steps=3, n_samples=4))
+    model = TMGlow(cfg.model, device=cuda_device, seed=0)
+    perturb_(model, 1, scale=0.05)
+    c = np.arange(1, 4, dtype=np.float32)
+    norm = NormStats(lf_mean=0.1 * c, lf_std=c, hf_mean=-0.2 * c, hf_std=0.5 * c)
+    path = tmp_path / "rollout.torchexport"
+    write_artifact(path, *build_exported(cfg, model, norm))
+    served = load_artifact(path)
+    assert served.device == torch.device("cuda", torch.cuda.current_device())
+    lf = torch.randn(3, 4, 8, 3, generator=torch.Generator().manual_seed(3)).to(cuda_device)
+    tau = torch.full((2,), 0.85, device=cuda_device)
+    before = tk.launches
+    got = served(lf, 4, tau)
+    torch.cuda.synchronize()
+    assert tk.launches - before == 3 * SMALL["n_scales"] * SMALL["n_flow_steps"]
+    ref = make_ensemble_rollout(model, 4, tau, "stats")(
+        lf, torch.Generator(cuda_device).manual_seed(4))
+    hf_std = torch.from_numpy(norm.hf_std).to(cuda_device)
+    want = {"mean": ref["mean"] * hf_std + torch.from_numpy(norm.hf_mean).to(cuda_device),
+            "var": ref["var"] * hf_std**2}
+    for k in want:
+        assert got[k].device == want[k].device and bool(torch.isfinite(got[k]).all())
+        torch.testing.assert_close(got[k], want[k], rtol=0,
+                                   atol=1e-5 * max(1.0, want[k].abs().max().item()))

@@ -40,7 +40,7 @@ import time
 import numpy as np
 import torch
 
-from tpuflow_torch.cli import parse_args, require_matplotlib
+from tpuflow_torch.cli import as_console_script, parse_args, require_matplotlib
 from tpuflow_torch.configs.config import CaseConfig
 from tpuflow_torch.data.dataset import load_dataset
 from tpuflow_torch.device import resolve_device
@@ -189,6 +189,8 @@ def main(argv: list[str] | None = None, seconds: dict | None = None) -> dict:
     print("stage seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()))
     return metrics
 
+
+cli = as_console_script(main)
 
 if __name__ == "__main__":
     main()

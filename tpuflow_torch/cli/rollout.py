@@ -43,7 +43,7 @@ import pathlib
 import numpy as np
 import torch
 
-from tpuflow_torch.cli import parse_args, require_matplotlib
+from tpuflow_torch.cli import as_console_script, parse_args, require_matplotlib
 from tpuflow_torch.configs.config import CaseConfig
 from tpuflow_torch.data.dataset import load_dataset
 from tpuflow_torch.eval.loading import load_eval_bundle, resolve_temperature
@@ -183,6 +183,8 @@ def main(argv: list[str] | None = None) -> dict:
     print(json.dumps(metrics))
     return metrics
 
+
+cli = as_console_script(main)
 
 if __name__ == "__main__":
     main()

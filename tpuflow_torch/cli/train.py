@@ -25,7 +25,7 @@ import pathlib
 import torch
 import torch.distributed as dist
 
-from tpuflow_torch.cli import parse_args
+from tpuflow_torch.cli import as_console_script, parse_args
 from tpuflow_torch.train import mesh
 from tpuflow_torch.train.trainer import Trainer
 from tpuflow_torch.utils.logging import MetricsLogger
@@ -61,6 +61,8 @@ def main(argv: list[str] | None = None) -> dict:
               f"windows/s={final['windows_per_sec']:.2f}")
     return final
 
+
+cli = as_console_script(main)
 
 if __name__ == "__main__":
     main()

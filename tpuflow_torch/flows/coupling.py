@@ -6,10 +6,12 @@ one parameter per Flax leaf (``conv_in_0``, ``conv_in_1``, ``joint_j``);
 ``AffineCoupling`` runs the whole coupling through the fused coupling of
 :mod:`tpuflow_torch.kernels.coupling_fused`: the CUDA kernel on a GPU,
 its plain version on the CPU. Given packed weights (a rollout packs them
-once) it calls ``fused_coupling`` directly; otherwise it goes through
-``fused_coupling_autograd``, which packs the parameters inside the call
-so that gradients reach every one of them. Its numerics are the JAX
-package's fused path (see that module's docstring).
+once) it calls the registered operator ``tpuflow_torch::fused_coupling``
+(:mod:`tpuflow_torch.kernels.ops`), which ``torch.export`` can trace;
+otherwise it goes through ``fused_coupling_autograd``, which packs the
+parameters inside the call so that gradients reach every one of them.
+Its numerics are the JAX package's fused path (see that module's
+docstring).
 """
 
 from __future__ import annotations
@@ -18,12 +20,8 @@ import torch
 from torch import nn
 
 from tpuflow_torch.flows.layout import conv_nhwc, lecun_normal_
-from tpuflow_torch.kernels.coupling_fused import (
-    PackedNet,
-    fused_coupling,
-    fused_coupling_autograd,
-    pack_net,
-)
+from tpuflow_torch.kernels.coupling_fused import PackedNet, fused_coupling_autograd, pack_net
+from tpuflow_torch.kernels.ops import fused_coupling
 
 
 class _Conv3x3Params(nn.Module):

@@ -36,6 +36,8 @@ import time
 import numpy as np
 import torch
 
+from tpuflow_torch.cli import as_console_script
+
 PROG = "python -m tpuflow_torch.tools.finetune"
 LOG_HEADER = "epoch,loss,bpd,crps,spec,disp,tau,seconds,grad_norm,skipped_windows"
 
@@ -243,6 +245,8 @@ def main(argv: list[str] | None = None) -> dict:
     print(json.dumps(summary))
     return summary
 
+
+cli = as_console_script(main)
 
 if __name__ == "__main__":
     main()
