@@ -26,6 +26,12 @@ and read just after:
   * the rollout CLI, ``python -m tpuflow_torch.cli.rollout``, in-process
     on a checkpoint in the exporter's format with a per-scale learned
     tau, 64 members, its LF input wrap-tiled (phase "rollout CLI");
+  * the committed trained flagship (``weights/r5_v3_deep_ft``) through the
+    rollout CLI's compute half at 64 members x 100 steps on its learned
+    tau, finite with the overflow redraw off; its f32 rollout on the
+    CPU's draws, card against CPU, and its bf16 held-out bits/dim, both
+    held to the CPU's ``reference.json`` beside the weights (phase
+    "flagship");
   * the ``cylinder-array`` case at its preset (4 members, 100 steps,
     96 x 96), with K2 held against its plain version and timed at the
     case's shapes (phase "cylinder");
@@ -186,6 +192,14 @@ STREAM_TOL_BPD = 1e-6
 # The streamed batch on the store's own constants against RAM's: the same
 # ulp apart, on inputs of order 1 (the CPU tests' bound, test_torch_tpf.py).
 STREAM_TOL_NORM = 1e-6
+# The flagship on the card: the committed weights (beside them the CPU's
+# reference.json) at the preset's 64 members x 100 steps. Its bf16 held-out
+# bits/dim is held to the CPU's at 1e-3 relative, the tolerance of the
+# port's bf16 numerics against JAX's fused path (tests/test_torch_evaluate.py
+# BF16_TOL); its f32 rollout at SLICE_TOL.
+FLAGSHIP_DIR = "weights/r5_v3_deep_ft"
+FLAGSHIP_STEPS = 100
+FLAGSHIP_TOL_BPD = 1e-3
 
 
 @contextlib.contextmanager
@@ -2161,6 +2175,117 @@ def tools_phase(case, dev) -> dict:
     return res
 
 
+def flagship_phase(dev, overrides=()) -> dict:
+    """The committed flagship (``weights/r5_v3_deep_ft``: ``runs/r5_v3_deep_ft``
+    step 16 through ``tools/export_to_torch.py``, fine-tuned, with a learned
+    per-scale tau in its meta) through the rollout CLI's compute half at the
+    preset's 64 members x 100 steps, bf16 nets, the overflow redraw off:
+    every statistic finite, K2 counted over the warm-up, the timed run and
+    the samples grid. Then, held to the CPU and to the CPU's
+    ``reference.json`` beside the weights
+    (``tpuflow_torch.tools.weights_reference``): the f32 rollout on draws
+    made on the CPU, card against CPU in this call, at SLICE_TOL x max(1,
+    max |ref|); the bf16 held-out bits/dim at FLAGSHIP_TOL_BPD relative.
+    ``overrides`` (key=value) shrink the CLI run for a rehearsal."""
+    import json
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpuflow_torch.cli import rollout as rollout_cli
+    from tpuflow_torch.configs import load_case, parse_cli_overrides
+    from tpuflow_torch.kernels import coupling_fused
+    from tpuflow_torch.tools import weights_reference as wr
+    from tpuflow_torch.train import Checkpointer
+
+    weights = pathlib.Path(__file__).resolve().parent / FLAGSHIP_DIR
+    want = json.loads((weights / "reference.json").read_text())
+    ckpt = Checkpointer(weights / "backward-step")
+    meta = ckpt.restore(map_location="cpu")["meta"]
+    print(f"  {FLAGSHIP_DIR}: step {ckpt.latest_step()} loaded by torch {torch.__version__}; "
+          f"learned tau {meta['learned_tau']}", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_flagship_") as tmp:
+        args = [f"train.checkpoint_dir={weights}",
+                f"data.fixture_version={meta['config']['data']['fixture_version']}",
+                f"eval.n_samples={N_MEMBERS}", f"eval.rollout_steps={FLAGSHIP_STEPS}",
+                "eval.overflow_redraw=false", f"eval.output_dir={tmp}", *overrides]
+        cfg = load_case("backward-step", parse_cli_overrides(args))
+        check(cfg.model.compute_dtype == "bfloat16" and not cfg.eval.overflow_redraw,
+              "bf16 nets, the redraw off")
+        coupling_fused.launches = 0
+        metrics, _ = rollout_cli.rollout(cfg, dev)
+        torch.cuda.synchronize()
+        launches = coupling_fused.launches
+        with np.load(pathlib.Path(tmp) / "backward-step" / "rollout_stats.npz") as f:
+            stats = {k: f[k] for k in f.files}
+    T, n = metrics["steps"], metrics["n_samples"]
+    t_mid = min(T, cfg.data.train_steps) // 2
+    per_step = cfg.model.n_scales * cfg.model.n_flow_steps
+    expected = per_step * (2 * T + t_mid + 1)
+    print(f"  {n} members x {T} steps, bf16, learned tau {metrics['temperature']}, redraw off: "
+          f"{metrics['rollout_steps_per_sec']:.3f} steps/s (the CLI's timed run) [{SMI[0]}]; "
+          f"K2 launches {launches} (expected {per_step} x ({T} x 2 runs + {t_mid + 1} "
+          "samples-grid steps))", flush=True)
+    check(launches == expected, "K2 launch count of the flagship rollout")
+    check(all(abs(a - b) < 1e-6 for a, b in zip(metrics["temperature"], meta["learned_tau"])),
+          "the flagship rolls out at its learned tau")
+    shape = (T, *cfg.model.hf_shape, cfg.model.channels)
+    for k, v in stats.items():
+        print(f"  {k}: finite {bool(np.isfinite(v).all())}, max |{k}| {np.abs(v).max():.4f}",
+              flush=True)
+        check(v.shape == shape and bool(np.isfinite(v).all()),
+              f"flagship {k} {v.shape} finite with the redraw off")
+    check(bool((stats["var"] >= 0).all()), "flagship var >= 0")
+
+    # f32 on the CPU's draws: the card against the CPU, and both against
+    # the committed reference.json.
+    ref = want["rollout"]
+    check((ref["seed"], ref["n_samples"], ref["steps"], ref["grid"]) == (
+        wr.ROLLOUT_SEED, wr.ROLLOUT_MEMBERS, wr.ROLLOUT_STEPS, wr.GRID),
+        "reference.json's rollout settings")
+    t0 = time.perf_counter()
+    cpu = wr.f32_rollout(weights, "cpu")
+    t_cpu = time.perf_counter() - t0
+    coupling_fused.launches = 0
+    t0 = time.perf_counter()
+    card = wr.f32_rollout(weights, dev)
+    t_card = time.perf_counter() - t0
+    check(coupling_fused.launches == per_step * wr.ROLLOUT_STEPS,
+          "K2 launch count of the f32 comparison rollout")
+    res = {"launches": launches, "steps_per_sec": metrics["rollout_steps_per_sec"],
+           "f32_err": {}, "f32_err_vs_reference": {}}
+    for k in ("mean", "var"):
+        scale = max(1.0, cpu[k].abs().max().item())
+        err = (card[k] - cpu[k]).abs().max().item()
+        res["f32_err"][k] = err
+        print(f"  f32 {ref['n_samples']} x {ref['steps']} (seed {ref['seed']}) {k}: card vs CPU "
+              f"max abs err {err:.3e} (tol {SLICE_TOL} x {scale:.3f}); card {t_card:.2f} s, "
+              f"CPU {t_cpu:.2f} s [{SMI[0]}]", flush=True)
+        check(bool(torch.isfinite(card[k]).all()) and err <= SLICE_TOL * scale,
+              f"flagship f32 rollout {k}, card vs CPU")
+    for name, got in (("card", wr.summarize(card)), ("CPU", wr.summarize(cpu))):
+        for k in ("mean", "var"):
+            scale = max(1.0, max(ref["stats"][k]["max_abs"]))
+            err = float(max(abs(a - b) for f in ("max_abs", "mean", "grid")
+                            for a, b in zip(np.ravel(got[k][f]), np.ravel(ref["stats"][k][f]))))
+            if name == "card":
+                res["f32_err_vs_reference"][k] = err
+            print(f"  f32 {k}, {name} vs reference.json: max abs err {err:.3e} "
+                  f"(tol {SLICE_TOL} x {scale:.3f})", flush=True)
+            check(err <= SLICE_TOL * scale, f"flagship f32 {k}, {name} vs reference.json")
+
+    t0 = time.perf_counter()
+    bpd = wr.heldout_bpd(weights, dev)
+    rel = abs(bpd - want["bpd"]["value"]) / abs(want["bpd"]["value"])
+    res["bpd"], res["bpd_rel_err"] = bpd, rel
+    print(f"  bf16 held-out bits/dim ({want['bpd']['steps']} steps, 4 trajectories): card "
+          f"{bpd:.6f}, reference.json (CPU) {want['bpd']['value']:.6f}, relative {rel:.3e} "
+          f"(tol {FLAGSHIP_TOL_BPD}); {time.perf_counter() - t0:.2f} s [{SMI[0]}]", flush=True)
+    check(math.isfinite(bpd) and rel <= FLAGSHIP_TOL_BPD, "flagship bf16 bits/dim vs reference")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=16,
@@ -2263,6 +2388,9 @@ def main() -> int:
     with phase("rollout CLI"):
         cli = rollout_cli_phase(dev)
 
+    with phase("flagship"):
+        flagship = flagship_phase(dev)
+
     with phase("cylinder"):
         cyl = cylinder_phase(dev)
 
@@ -2300,10 +2428,10 @@ def main() -> int:
                             tools.pop("k2_width128_max_abs_err"))
     k2["launches_by_path"] = {"rollout": launches, "train": train.pop("launches")}
     k2["launches_by_path"]["data_parallel_nccl"] = parallel.pop("nccl_launches")
-    for name, res in (("rollout_cli", cli), ("cylinder", cyl), ("batched", batched),
-                      ("redraw", redraw), ("evaluate", evaluated), ("finetune", finetuned),
-                      ("data_parallel", parallel), ("split", split), ("stream", streamed),
-                      ("serve", served), ("tools", tools)):
+    for name, res in (("rollout_cli", cli), ("flagship", flagship), ("cylinder", cyl),
+                      ("batched", batched), ("redraw", redraw), ("evaluate", evaluated),
+                      ("finetune", finetuned), ("data_parallel", parallel), ("split", split),
+                      ("stream", streamed), ("serve", served), ("tools", tools)):
         k2["launches_by_path"][name] = res.pop("launches")
         k2[name] = res
     k2["train"] = train

@@ -16,6 +16,12 @@ f32 inside a fusion under ``jax.jit``, which moves JAX's bits/dim away
 from the program as written by up to 1.5e-3 relative (the flagship,
 measured); with the flag off, JAX computes what its code says, op by op
 rounding included.
+
+On the flagship, the port's number is also the one the card checks: the
+committed ``weights/r5_v3_deep_ft/reference.json`` (written by
+``tpuflow_torch.tools.weights_reference`` from the committed export, on
+the CPU) must hold it bit for bit, the CPU's computation being
+deterministic (one thread or eight, measured).
 """
 
 import json
@@ -45,3 +51,7 @@ def test_port_bf16_bpd_matches_jax_fused_numerics(checkpoint):
     assert r["rel_port_vs_jax_fused"] <= TOL, r
     tol = TOL * abs(r["jax_default"])
     assert r["gap_port_vs_default"] <= r["gap_jax_fused_vs_default"] + tol, r
+    if checkpoint == "flagship":
+        ref = json.loads((ROOT / "weights" / "r5_v3_deep_ft" / "reference.json").read_text())
+        assert ref["bpd"]["steps"] == r["steps"] and ref["bpd"]["dtype"] == "bfloat16"
+        assert ref["bpd"]["value"] == r["port"], (ref["bpd"], r["port"])

@@ -17,7 +17,13 @@ rollout CLI's figures, against the JAX package.
     1e-4 relative; ``test_bpd`` within JAX's own gap between its fused
     numerics and its default bf16 path (measured here) plus 1e-3
     relative: the port computes the fused numerics, the oracle was
-    evaluated on the default path (``tools/bf16_gap.py``).
+    evaluated on the default path (``tools/bf16_gap.py``). The same
+    evaluation is held to the port's own committed oracle
+    (``runs/r5_eval_oracle_torch``, ``tpuflow_torch.tools.make_eval_oracle``
+    on the CPU, one thread, from the same checkpoint committed in the port's
+    format): every value of ``eval_metrics.json`` and every artefact array
+    bit for bit, since the port's CPU evaluation is deterministic (repeated
+    runs in separate processes wrote identical files).
 """
 
 import importlib.util
@@ -36,6 +42,7 @@ import tpuflow.cli.evaluate as j_evaluate
 import tpuflow.cli.rollout as j_rollout
 import tpuflow_torch.cli.evaluate as t_evaluate
 import tpuflow_torch.cli.rollout as t_rollout
+import tpuflow_torch.tools.make_eval_oracle as t_make_eval_oracle
 from tpuflow.cli import parse_args as j_parse_args
 from tpuflow.models.tmglow import TMGlow as JTMGlow
 from tpuflow.models.tmglow import init_lstm_state as j_init_lstm_state
@@ -48,6 +55,7 @@ torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ORACLE_DIR = ROOT / "runs" / "r5_eval_oracle" / ORACLE_CASE
+PORT_ORACLE_DIR = ROOT / "runs" / "r5_eval_oracle_torch" / ORACLE_CASE
 ORACLE_CKPT = ROOT / "runs" / "r4_bstep_deeper" / "checkpoints"
 RTOL, ATOL = 1e-4, 1e-6
 BF16_TOL = 1e-3  # port vs JAX's fused numerics, relative (tools/bf16_gap.py)
@@ -242,6 +250,15 @@ def _bf16_gap():
     return bf16_gap
 
 
+def _arrays(path) -> dict:
+    """The arrays of an ``.npy`` ("") or ``.npz`` file, by name."""
+    data = np.load(path)
+    if isinstance(data, np.ndarray):
+        return {"": data}
+    with data:
+        return {k: data[k] for k in data.files}
+
+
 def test_committed_oracle_through_the_exporter(tmp_path):
     """The oracle's checkpoint, exported, evaluated by the port with the
     oracle's overrides (eval.n_samples 4, rollout_steps 8,
@@ -271,3 +288,14 @@ def test_committed_oracle_through_the_exporter(tmp_path):
     for key, fused in (("test_bpd", float(np.mean(bpds))), ("test_bpd_last_step", float(bpds[-1]))):
         jax_gap = abs(fused - want[key])
         assert abs(got[key] - want[key]) <= jax_gap + BF16_TOL * abs(want[key]), key
+
+    # The port's committed oracle, regenerated by make_eval_oracle: bit for bit.
+    assert over == [o for o in t_make_eval_oracle.ORACLE_OVERRIDES
+                    if not o.startswith("train.checkpoint_dir=")]
+    assert json.loads(json.dumps(got)) == json.loads(
+        (PORT_ORACLE_DIR / "eval_metrics.json").read_text())
+    assert (sorted(p.name for p in PORT_ORACLE_DIR.iterdir())
+            == sorted(p.name for p in ORACLE_DIR.iterdir()))
+    for name in ARTEFACTS:
+        a, b = _arrays(tmp_path / "eval" / ORACLE_CASE / name), _arrays(PORT_ORACLE_DIR / name)
+        assert list(a) == list(b) and all(np.array_equal(a[k], b[k]) for k in a), name

@@ -4,6 +4,7 @@ package, and entry points refuse to run on the CPU unasked.
 """
 
 import ast
+import importlib.util
 import pathlib
 import subprocess
 import sys
@@ -94,7 +95,8 @@ def test_package_imports_without_jax():
 
 
 def test_no_jax_or_tpuflow_import_in_sources():
-    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                        ROOT / "examples" / "quickstart_torch.py"]
     assert len(files) > 10
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -121,3 +123,17 @@ def test_default_device_entry_point_raises_without_cuda():
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         finetune_main(["backward-step", "train.checkpoint_dir=/nonexistent"])
+    # So do the converter, the oracle's generator and the walkthrough.
+    from tpuflow_torch.tools.convert_torch import main as convert_main
+    from tpuflow_torch.tools.make_eval_oracle import main as oracle_main
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert_main(["/nonexistent.pt", "/nonexistent", "backward-step"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        oracle_main([])
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
+    quickstart = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quickstart)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quickstart.main(["/nonexistent"])
