@@ -10,13 +10,17 @@ builds the port's CUDA kernels from the sources in the checkout (one
 checks that the bf16 conv kernel's SASS holds tensor-core (HMMA)
 instructions and K1's 128-bit global loads, holds each kernel against
 its plain PyTorch version on the card and times it beside its bound (K2
-also beside cuDNN's bf16 convs, a yardstick the port never calls, and at
-the training batch; K1 with the L2 cold and warm), and drives
+in both of its bf16 numerics, ``model.use_pallas`` false and true, each
+against the plain version of the same numerics and timed beside the
+other, also beside cuDNN's bf16 convs, a yardstick the port never calls,
+and at the training batch; K1 with the L2 cold and warm), and drives
 the port's paths, each with the launch counts set to 0 just before it
 and read just after:
 
   * the ensemble rollout of the backward-step case at full width, from a
-    seeded random init, through the fused coupling K2 (phase "slice");
+    seeded random init, through the fused coupling K2 in the preset's
+    numerics (the JAX default path's), and its rate beside the fused
+    numerics' (phase "slice");
   * training at full width through the CLI, ``python -m
     tpuflow_torch.cli.train``, in-process on a small fixture: every
     coupling forward launches K2, its backward differentiates the plain
@@ -29,8 +33,10 @@ and read just after:
   * the committed trained flagship (``weights/r5_v3_deep_ft``) through the
     rollout CLI's compute half at 64 members x 100 steps on its learned
     tau, finite with the overflow redraw off; its f32 rollout on the
-    CPU's draws, card against CPU, and its bf16 held-out bits/dim, both
-    held to the CPU's ``reference.json`` beside the weights (phase
+    CPU's draws, card against CPU, and its bf16 held-out bits/dim in its
+    checkpoint's numerics (the default path's), both held to the CPU's
+    ``reference.json`` beside the weights; the 64-step held-out bits/dim
+    in both numerics beside the TPU's, for information (phase
     "flagship");
   * the ``cylinder-array`` case at its preset (4 members, 100 steps,
     96 x 96), with K2 held against its plain version and timed at the
@@ -125,11 +131,23 @@ K2_SOURCE = "tpuflow_torch/kernels/csrc/coupling_fused.cu"
 K2_REPLACES = "tpuflow/kernels/coupling_fused.py:119"
 # Kernel vs plain version: y max abs error, logdet error relative to
 # max(1, |logdet|). f32: both accumulate in f32, so only the summation
-# order differs. bf16: same rounding of inputs and weights, but a relu
-# feature near a bf16 rounding boundary can round one ulp apart; 5e-3
-# leaves room for that at these shapes (worst seen on an H100: 9.2e-4)
-# and still catches a fault of the bf16 instantiation alone.
+# order differs. bf16, either numerics: same rounding of inputs and
+# weights, but a value near a bf16 rounding boundary (a relu feature; in
+# the default numerics every conv output and sum) can round one ulp
+# apart; 5e-3 leaves room for that at these shapes (worst seen on an
+# H100, fused numerics: 9.2e-4) and still catches a fault of the bf16
+# instantiation alone.
 TOL = {"float32": (1e-4, 1e-5), "bfloat16": (5e-3, 1e-3)}
+# bf16 default numerics: the share of y values more than 1e-5 apart. Both
+# sides round the head (raw, t) to bf16, so only a value whose f32 sum
+# lies on a rounding boundary differs, with the flips it spreads through
+# the later convs (0.39 % at B = 2, scale 0, on the CPU with f64 against
+# f32 sums; 0.2 % to 2.05 % kernel against plain on an H100), where a
+# rounding point missed moves about half of y: a missed bias, h0c or
+# running-sum rounding moves every head value (the fused numerics, all of
+# them missed: 49.5 %; test_torch_numerics.py prints both). The max error
+# alone, one ulp of a head value either way, does not tell the two apart.
+DEFAULT_SHARE_TOL = 0.1
 ROUNDTRIP_TOL = 1e-4  # the BASELINE invertibility gate, f32
 # K1 vs plain, the JAX package's tolerances (tests/test_kernels.py:38-39,
 # 47, 67): y within 1e-6 + 1e-6 |y|, logdet 1e-5 relative to max(1, |ld|),
@@ -200,6 +218,12 @@ STREAM_TOL_NORM = 1e-6
 FLAGSHIP_DIR = "weights/r5_v3_deep_ft"
 FLAGSHIP_STEPS = 100
 FLAGSHIP_TOL_BPD = 1e-3
+# The TPU's held-out bits/dim of the flagship, 64 steps x 4 test
+# trajectories, default numerics (runs/r5_v3_deep_ft/eval/backward-step/
+# eval_metrics.json "test_bpd", "backend": "tpu"); printed beside the
+# card's, for information: XLA on the TPU fuses (and rounds) otherwise.
+FLAGSHIP_TPU_TEST_BPD = -7.75687313079834
+FLAGSHIP_TEST_STEPS = 64
 
 
 @contextlib.contextmanager
@@ -213,6 +237,17 @@ def phase(name: str):
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+# K2's two numerics at bf16 (``model.use_pallas``, ``PackedNet.fused``):
+# the JAX default path's, every conv output and sum rounded to bf16 (the
+# presets' and every committed checkpoint's), and the fused coupling's.
+NUMERICS = ("default", "fused")
+
+
+def numerics_of(cfg) -> str:
+    """The numerics a model config selects."""
+    return "fused" if cfg.use_pallas else "default"
 
 
 def has_matplotlib() -> bool:
@@ -279,9 +314,11 @@ def time_cold_ms(fn, sets, reps: int) -> float:
     return time_graph_ms(lambda: outs.append(fn(*next(calls))), reps)
 
 
-def random_coupling(b, h, w, ca, width, growth, layers, dtype, h0c_batch, gen, dev):
+def random_coupling(b, h, w, ca, width, growth, layers, dtype, h0c_batch, gen, dev,
+                    fused=False):
     """Inputs and packed weights at lecun scale, with a random non-zero
-    head (a zero head makes the coupling a constant scale)."""
+    head (a zero head makes the coupling a constant scale), in the
+    numerics ``fused`` (the presets' default path: False)."""
     import torch
 
     from tpuflow_torch.kernels.coupling_fused import pack_net
@@ -296,7 +333,7 @@ def random_coupling(b, h, w, ca, width, growth, layers, dtype, h0c_batch, gen, d
     for wj in wjs:
         wj[-2 * ca:] *= 0.1
     net = pack_net(lecun(width, cb), (0.1 * torch.randn(width, generator=gen)).to(dev), wjs,
-                   (0.1 * torch.randn(total0, generator=gen)).to(dev), dtype)
+                   (0.1 * torch.randn(total0, generator=gen)).to(dev), dtype, fused=fused)
     xa = torch.randn(b, h, w, ca, generator=gen).to(dev)
     xb = torch.randn(b, h, w, cb, generator=gen).to(dev)
     h0c = None
@@ -307,8 +344,9 @@ def random_coupling(b, h, w, ca, width, growth, layers, dtype, h0c_batch, gen, d
 
 def kernel_phase(cfg, dev, b=N_MEMBERS, b_train=8):
     """K2 against its plain version at the rollout's three shapes with
-    ``b`` members, its f32 roundtrip, and its time (also at ``b_train``,
-    the training batch, unless None); returns the kernels-line entry
+    ``b`` members and with ``b_train`` (the training batch), in both
+    numerics at bf16, its f32 roundtrip, and its time in both numerics
+    (also at ``b_train`` unless None); returns the kernels-line entry
     (without launches)."""
     import torch
 
@@ -317,7 +355,7 @@ def kernel_phase(cfg, dev, b=N_MEMBERS, b_train=8):
 
     gen = torch.Generator().manual_seed(1)
     width, growth, layers = cfg.coupling_width, cfg.growth_rate, cfg.coupling_layers
-    worst = k2_parity(cfg, dev, b, gen)
+    worst = max(k2_parity(cfg, dev, bb, gen) for bb in (b, b_train) if bb)
     c = cfg.channels
     for l, (h, w) in enumerate(scale_shapes(cfg)):
         c = 4 * c if l == 0 else 2 * c  # squeeze x4, after a split's halving
@@ -334,12 +372,17 @@ def kernel_phase(cfg, dev, b=N_MEMBERS, b_train=8):
     shapes = k2_times(cfg, dev, b, gen)
     for s in shapes if b_train else ():
         _, h, w, ca = s["shape"]
-        xs = random_coupling(b_train, h, w, ca, width, growth, layers, torch.bfloat16,
-                             b_train, gen, dev)
-        s.update(ms_b8=time_graph_ms(lambda: fused_coupling(*xs, reverse=True), 20),
-                 bound_ms_b8=k2_bound(*xs, growth, layers)[0])
-        print(f"  scale {s['scale']} K2 at B = {b_train}: {s['ms_b8']:.5f} ms/launch in a graph "
-              f"(bound {s['bound_ms_b8']:.5f})", flush=True)
+        xa, xb, h0c, net = random_coupling(b_train, h, w, ca, width, growth, layers,
+                                           torch.bfloat16, b_train, gen, dev, cfg.use_pallas)
+        by = {}
+        for name in NUMERICS:  # each numerics beside the other, same inputs
+            n = net._replace(fused=name == "fused")
+            by[name] = time_graph_ms(lambda: fused_coupling(xa, xb, h0c, n, reverse=True), 20)
+        s.update(ms_b8=by[numerics_of(cfg)], ms_b8_by_numerics=by,
+                 bound_ms_b8=k2_bound(xa, xb, h0c, net, growth, layers)[0])
+        print(f"  scale {s['scale']} K2 at B = {b_train}: "
+              + ", ".join(f"{k} {v:.5f}" for k, v in by.items())
+              + f" ms/launch in a graph (bound {s['bound_ms_b8']:.5f})", flush=True)
     mean = lambda k: sum(s[k] for s in shapes) / len(shapes)  # noqa: E731
     return {
         "name": "fused_coupling",
@@ -362,9 +405,11 @@ def kernel_phase(cfg, dev, b=N_MEMBERS, b_train=8):
 
 
 def k2_parity(cfg, dev, b, gen=None) -> float:
-    """K2 against its plain version at the three scales' shapes with ``b``
-    members, f32 and bf16, the conditioning batched 1, ``b`` or absent,
-    both directions; returns the worst y error."""
+    """K2 against its plain version of the same numerics at the three
+    scales' shapes with ``b`` members, f32 and bf16 (bf16 in both numerics:
+    the default path's and the fused coupling's; at f32 they are one), the
+    conditioning batched 1, ``b`` or absent, both directions; returns the
+    worst y error."""
     import torch
 
     from tpuflow_torch.kernels.coupling_fused import fused_coupling, fused_coupling_reference
@@ -376,24 +421,31 @@ def k2_parity(cfg, dev, b, gen=None) -> float:
     for l, (h, w) in enumerate(scale_shapes(cfg)):
         c = 4 * c if l == 0 else 2 * c  # squeeze x4, after a split's halving
         ca = c // 2
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype, numerics in ((torch.float32, (numerics_of(cfg),)),
+                                (torch.bfloat16, NUMERICS)):
             tol_y, tol_ld = TOL[str(dtype).removeprefix("torch.")]
             for h0c_batch in (1, b, 0):
                 xa, xb, h0c, net = random_coupling(b, h, w, ca, width, growth, layers,
                                                    dtype, h0c_batch, gen, dev)
-                for reverse in (False, True):
-                    y, ld = fused_coupling(xa, xb, h0c, net, reverse=reverse)
-                    y_ref, ld_ref = fused_coupling_reference(xa, xb, h0c, net, reverse=reverse)
+                for name, reverse in itertools.product(numerics, (False, True)):
+                    n = net._replace(fused=name == "fused")
+                    y, ld = fused_coupling(xa, xb, h0c, n, reverse=reverse)
+                    y_ref, ld_ref = fused_coupling_reference(xa, xb, h0c, n, reverse=reverse)
                     torch.cuda.synchronize()
                     err_y = (y - y_ref).abs().max().item()
                     err_ld = ((ld - ld_ref).abs() / ld_ref.abs().clamp_min(1.0)).max().item()
                     fin = bool(torch.isfinite(y).all() and torch.isfinite(ld).all())
-                    print(f"  scale {l} B={b} {h}x{w} ca=cb={ca} {dtype} h0c_batch={h0c_batch} "
-                          f"reverse={reverse}: y err {err_y:.3e} (tol {tol_y}), "
-                          f"ld rel err {err_ld:.3e} (tol {tol_ld})", flush=True)
-                    check(fin and err_y <= tol_y and err_ld <= tol_ld,
-                          f"K2 vs plain at scale {l} B={b} {dtype} h0c_batch={h0c_batch} "
-                          f"reverse={reverse}")
+                    rounded = dtype == torch.bfloat16 and name == "default"
+                    share = ((y - y_ref).abs() > 1e-5).float().mean().item() if rounded else 0.0
+                    print(f"  scale {l} B={b} {h}x{w} ca=cb={ca} {dtype} {name} "
+                          f"h0c_batch={h0c_batch} reverse={reverse}: y err {err_y:.3e} "
+                          f"(tol {tol_y}), ld rel err {err_ld:.3e} (tol {tol_ld})"
+                          + (f", y share > 1e-5 {share:.2e} (tol {DEFAULT_SHARE_TOL})"
+                             if rounded else ""), flush=True)
+                    check(fin and err_y <= tol_y and err_ld <= tol_ld
+                          and share <= DEFAULT_SHARE_TOL,
+                          f"K2 vs plain at scale {l} B={b} {dtype} {name} "
+                          f"h0c_batch={h0c_batch} reverse={reverse}")
                     worst = max(worst, err_y)
     return worst
 
@@ -403,8 +455,9 @@ def k2_times(cfg, dev, b, gen=None, reverse=True) -> list[dict]:
     conditioning batched over the ``b`` members; ``reverse=False``: the
     NLL forward's) at the three scales' shapes: device time per launch
     from a CUDA graph of 20 launches (back-to-back eager calls would also
-    hold the host's ~0.1 ms per call), the eager time beside it, its
-    bound, the plain version's time and cuDNN's five bf16 convs (a
+    hold the host's ~0.1 ms per call) in each numerics on the same inputs
+    (``ms``: the config's, ``model.use_pallas``), the eager time beside
+    it, its bound, the plain version's time and cuDNN's five bf16 convs (a
     yardstick the port never calls)."""
     import torch
 
@@ -418,18 +471,24 @@ def k2_times(cfg, dev, b, gen=None, reverse=True) -> list[dict]:
         c = 4 * c if l == 0 else 2 * c
         ca = c // 2
         xa, xb, h0c, net = random_coupling(b, h, w, ca, width, growth, layers,
-                                           torch.bfloat16, b, gen, dev)
-        ms = time_graph_ms(lambda: fused_coupling(xa, xb, h0c, net, reverse=reverse), 20)
+                                           torch.bfloat16, b, gen, dev, cfg.use_pallas)
+        by = {}
+        for name in NUMERICS:  # each numerics beside the other, same inputs
+            n = net._replace(fused=name == "fused")
+            by[name] = time_graph_ms(lambda: fused_coupling(xa, xb, h0c, n, reverse=reverse), 20)
+        ms = by[numerics_of(cfg)]
         eager_ms = time_ms(lambda: fused_coupling(xa, xb, h0c, net, reverse=reverse), 20)
         plain_ms = time_graph_ms(
             lambda: fused_coupling_reference(xa, xb, h0c, net, reverse=reverse), 20)
         chain_ms = cudnn_chain_ms(b, h, w, ca, width, growth, layers, dev)
         bound_ms, bound_by, flops, nbytes = k2_bound(xa, xb, h0c, net, growth, layers)
-        shapes.append(dict(scale=l, shape=[b, h, w, ca], reverse=reverse, ms=ms,
+        shapes.append(dict(scale=l, shape=[b, h, w, ca], reverse=reverse,
+                           numerics=numerics_of(cfg), ms=ms, ms_by_numerics=by,
                            eager_ms=eager_ms, plain_ms=plain_ms, cudnn_chain_ms=chain_ms, bound_ms=bound_ms,
                            bound_by=bound_by, gflop=flops / 1e9, mbytes=nbytes / 1e6))
-        print(f"  scale {l} K2 {'reverse' if reverse else 'forward'} at B = {b}: {ms:.5f} "
-              f"ms/launch in a graph, {eager_ms:.5f} eager "
+        print(f"  scale {l} K2 {'reverse' if reverse else 'forward'} at B = {b}: "
+              + ", ".join(f"{k} {v:.5f}" for k, v in by.items())
+              + f" ms/launch in a graph, {eager_ms:.5f} eager ({numerics_of(cfg)}) "
               f"(bound {bound_ms:.5f} ms by {bound_by}, {flops / 1e9:.2f} GFLOP, "
               f"{nbytes / 1e6:.1f} MB, {100 * bound_ms / ms:.1f}% of the bound reached); plain "
               f"version {plain_ms:.4f} ms (not a yardstick); cuDNN's five bf16 convs "
@@ -518,7 +577,11 @@ def seeded_source(case, path, **meta) -> None:
 
 
 def slice_phase(cfg, dev, steps: int):
-    """The main path: 64-member stats rollout at full width, bf16."""
+    """The main path: 64-member stats rollout at full width, bf16, in the
+    preset's numerics (the default path's); then its rate beside the
+    other numerics' on the same weights and draws."""
+    import dataclasses
+
     import torch
 
     from tpuflow_torch.eval import make_ensemble_rollout
@@ -552,6 +615,23 @@ def slice_phase(cfg, dev, steps: int):
     check(bool((out["var"] >= 0).all()), "var >= 0")
     print(f"  mean |mean| {out['mean'].abs().mean().item():.4f}, "
           f"mean var {out['var'].mean().item():.4f}", flush=True)
+    check(all(p.fused is cfg.use_pallas for row in model.glow.pack_couplings() for p in row),
+          "every coupling of the main path in the config's numerics")
+
+    # Both numerics' rates on the same weights and draws, the config's
+    # before and after the other's (a host-bound rate moves within a call).
+    other = TMGlow(dataclasses.replace(cfg, use_pallas=not cfg.use_pallas), device=dev, seed=0)
+    other.load_state_dict(model.state_dict())
+    rates: dict[str, list[float]] = {}
+    for m in (model, other, model):
+        r = make_ensemble_rollout(m, N_MEMBERS, TAU, "stats")
+        t0 = time.perf_counter()
+        r(lf, torch.Generator(dev).manual_seed(4))
+        torch.cuda.synchronize()
+        rates.setdefault(numerics_of(m.cfg), []).append(steps / (time.perf_counter() - t0))
+    print("  rollout steps/s by numerics: " + ", ".join(
+        f"{k} {' / '.join(f'{v:.3f}' for v in vs)}" for k, vs in rates.items())
+        + f" [{SMI[0]}]", flush=True)
 
     # K2's share of the path: CUDA events around every K2 call in a
     # second run of the same rollout (the counted run above stays
@@ -588,7 +668,7 @@ def slice_phase(cfg, dev, steps: int):
     print(f"  instrumented rerun: {steps / elapsed_timed:.3f} steps/s; K2 in the rollout "
           f"{' / '.join(f'{t:.4f}' for t in per_launch)} ms per launch by scale, "
           f"{k2_ms / steps:.3f} ms per step, {100 * share:.1f}% of the step", flush=True)
-    return launches, steps / elapsed, per_launch, share
+    return launches, steps / elapsed, per_launch, share, rates
 
 
 def reference_phase(cfg, dev):
@@ -2213,6 +2293,8 @@ def flagship_phase(dev, overrides=()) -> dict:
         cfg = load_case("backward-step", parse_cli_overrides(args))
         check(cfg.model.compute_dtype == "bfloat16" and not cfg.eval.overflow_redraw,
               "bf16 nets, the redraw off")
+        check(not cfg.model.use_pallas and meta["config"]["model"]["use_pallas"] is False,
+              "the flagship rolls out in its checkpoint's numerics, the default path's")
         coupling_fused.launches = 0
         metrics, _ = rollout_cli.rollout(cfg, dev)
         torch.cuda.synchronize()
@@ -2283,6 +2365,19 @@ def flagship_phase(dev, overrides=()) -> dict:
           f"{bpd:.6f}, reference.json (CPU) {want['bpd']['value']:.6f}, relative {rel:.3e} "
           f"(tol {FLAGSHIP_TOL_BPD}); {time.perf_counter() - t0:.2f} s [{SMI[0]}]", flush=True)
     check(math.isfinite(bpd) and rel <= FLAGSHIP_TOL_BPD, "flagship bf16 bits/dim vs reference")
+
+    # For information: the evaluator's test_bpd on the card in each
+    # numerics, beside the TPU's.
+    res["test_bpd_by_numerics"] = {}
+    for name in NUMERICS:
+        t0 = time.perf_counter()
+        v = wr.heldout_bpd(weights, dev, FLAGSHIP_TEST_STEPS,
+                           **{"model.use_pallas": name == "fused"})
+        res["test_bpd_by_numerics"][name] = v
+        print(f"  bf16 held-out bits/dim, {FLAGSHIP_TEST_STEPS} steps x 4 trajectories, {name} "
+              f"numerics: card {v:.6f} (the TPU's evaluation {FLAGSHIP_TPU_TEST_BPD:.6f}, "
+              f"default numerics; not a gate); {time.perf_counter() - t0:.2f} s", flush=True)
+        check(math.isfinite(v), f"flagship {name} test bits/dim finite")
     return res
 
 
@@ -2369,10 +2464,11 @@ def main() -> int:
         k1["launches"] = k1_path_phase(dev)
 
     with phase("slice"):
-        launches, steps_per_s, rollout_ms, share = slice_phase(cfg, dev, args.steps)
+        launches, steps_per_s, rollout_ms, share, rates = slice_phase(cfg, dev, args.steps)
         for s, ms in zip(k2["shapes"], rollout_ms):
             s["rollout_ms"] = ms
         k2["share_of_step"] = share
+        k2["rollout_steps_per_sec_by_numerics"] = rates
         print(f"  K2 bound per rollout step "
               f"{sum(s['bound_ms'] for s in k2['shapes']) * cfg.n_flow_steps:.4f} ms",
               flush=True)

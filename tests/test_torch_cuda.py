@@ -110,9 +110,11 @@ def test_cuda_kernel_matches_plain_version(cuda_device, dtype, h0c_batch, revers
     torch.testing.assert_close(ld, ld_ref, atol=tol_ld, rtol=1e-5)
 
 
-def _lecun_case(device, dtype, b, h, w, ca, cb, width, growth, layers, h0c_batch, seed):
+def _lecun_case(device, dtype, b, h, w, ca, cb, width, growth, layers, h0c_batch, seed,
+                fused=True):
     """Inputs and packed weights at lecun scale (kernels / sqrt(9 cin), the
-    head columns x 0.1), so the features stay O(1) at any width."""
+    head columns x 0.1), so the features stay O(1) at any width; ``fused``
+    the numerics the packed net carries."""
     rng = np.random.default_rng(seed)
     total0 = layers * growth + 2 * ca
 
@@ -124,7 +126,7 @@ def _lecun_case(device, dtype, b, h, w, ca, cb, width, growth, layers, h0c_batch
     net = pack_net(lecun(width, cb), _np(rng, (width,), 0.1).to(device),
                    [lecun(total0 - j * growth, width if j == 0 else growth)
                     for j in range(layers + 1)],
-                   _np(rng, (total0,), 0.1).to(device), dtype)
+                   _np(rng, (total0,), 0.1).to(device), dtype, fused=fused)
     xa, xb = _np(rng, (b, h, w, ca)).to(device), _np(rng, (b, h, w, cb)).to(device)
     h0c = None
     if h0c_batch is not None:
@@ -192,10 +194,11 @@ def test_cuda_kernel_at_the_evaluator_batch(cuda_device, shape, dtype, h0c_batch
     _check_against_plain(cuda_device, shape, dtype, h0c_batch, reverse)
 
 
-def _check_against_plain(cuda_device, shape, dtype, h0c_batch, reverse):
+def _check_against_plain(cuda_device, shape, dtype, h0c_batch, reverse, fused=True):
     b, h, w, ca, cb, width, growth, layers = shape
     tol_y, tol_ld = _TOL[dtype]
-    xa, xb, h0c, net = _lecun_case(cuda_device, _DT[dtype], *shape, h0c_batch, seed=sum(shape))
+    xa, xb, h0c, net = _lecun_case(cuda_device, _DT[dtype], *shape, h0c_batch, seed=sum(shape),
+                                   fused=fused)
     before = tk.launches
     y, ld = fused_coupling(xa, xb, h0c, net, reverse=reverse)
     y2, ld2 = fused_coupling(xa, xb, h0c, net, reverse=reverse)
@@ -206,6 +209,59 @@ def _check_against_plain(cuda_device, shape, dtype, h0c_batch, reverse):
     assert y.shape == (b, h, w, ca + cb) and torch.isfinite(y).all()
     torch.testing.assert_close(y, y_ref, atol=tol_y, rtol=1e-5)
     torch.testing.assert_close(ld, ld_ref, atol=tol_ld, rtol=1e-5)
+    return y, y_ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("h0c_batch", [None, 1, "B"])
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_cuda_default_numerics_edge_shapes(cuda_device, shape, h0c_batch, reverse):
+    """The bf16 kernel in the default path's numerics (``fused=False``:
+    every conv output and sum rounded to bf16) against the plain version
+    of the same numerics, at the edges of the tile plan, at the bf16
+    tolerances; the logdet and y bit-identical over two launches."""
+    _check_against_plain(cuda_device, shape, "bfloat16", h0c_batch, reverse, fused=False)
+
+
+# The rollout's three backward-step scales at the 64 members and at the
+# training batch of 8.
+ROLLOUT_SHAPES = [(b, *s, 64, 32, 3) for b in (64, 8)
+                  for s in ((32, 64, 6, 6), (16, 32, 12, 12), (8, 16, 24, 24))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("shape", ROLLOUT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_cuda_both_numerics_at_the_rollout_shapes(cuda_device, shape, fused, reverse):
+    """Each numerics against its plain version at the bf16 tolerances. In
+    the default numerics both sides round the head (raw, t) to bf16, so
+    y differs only where an f32 sum lies on a rounding boundary: at most 10 %
+    of the values by more than 1e-5 (``chip_smoke.py``'s
+    ``DEFAULT_SHARE_TOL``; ``test_torch_numerics.py`` measures the share a
+    summation order moves on the CPU)."""
+    y, y_ref = _check_against_plain(cuda_device, shape, "bfloat16", "B", reverse, fused=fused)
+    if not fused:
+        assert ((y - y_ref).abs() > 1e-5).float().mean().item() <= 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+def test_cuda_numerics_bit_equal_at_f32_and_differ_at_bf16(cuda_device, reverse):
+    """At f32 the kernel's two numerics are one computation (the rounding
+    is the identity): bit-equal. At bf16 they differ, and each holds
+    against its own plain version."""
+    shape = (3, 8, 16, 6, 6, 64, 32, 3)
+    for dtype in ("float32", "bfloat16"):
+        ys = []
+        for fused in (False, True):
+            xa, xb, h0c, net = _lecun_case(cuda_device, _DT[dtype], *shape, "B", seed=3,
+                                           fused=fused)
+            ys.append(fused_coupling(xa, xb, h0c, net, reverse=reverse))
+        torch.cuda.synchronize()
+        same = torch.equal(ys[0][0], ys[1][0]) and torch.equal(ys[0][1], ys[1][1])
+        assert same == (dtype == "float32"), dtype
 
 
 @pytest.mark.cuda

@@ -14,10 +14,12 @@ rollout CLI's figures, against the JAX package.
     (``runs/r4_bstep_deeper``) through ``tools/export_to_torch.py``,
     evaluated by the port with the oracle's own overrides at the preset's
     bf16. Key set and nesting equal; the sample-free numbers equal at
-    1e-4 relative; ``test_bpd`` within JAX's own gap between its fused
-    numerics and its default bf16 path (measured here) plus 1e-3
-    relative: the port computes the fused numerics, the oracle was
-    evaluated on the default path (``tools/bf16_gap.py``). The same
+    1e-4 relative; ``test_bpd`` and ``test_bpd_last_step`` within 1e-3
+    relative: the port computes the default path's numerics
+    (``model.use_pallas: false``), as the oracle was evaluated
+    (``tools/bf16_gap.py``). Beside it, the port's fused numerics
+    (``use_pallas: true``) against JAX's (``xla_reference``, measured
+    here) at the same 1e-3. The same
     evaluation is held to the port's own committed oracle
     (``runs/r5_eval_oracle_torch``, ``tpuflow_torch.tools.make_eval_oracle``
     on the CPU, one thread, from the same checkpoint committed in the port's
@@ -58,7 +60,7 @@ ORACLE_DIR = ROOT / "runs" / "r5_eval_oracle" / ORACLE_CASE
 PORT_ORACLE_DIR = ROOT / "runs" / "r5_eval_oracle_torch" / ORACLE_CASE
 ORACLE_CKPT = ROOT / "runs" / "r4_bstep_deeper" / "checkpoints"
 RTOL, ATOL = 1e-4, 1e-6
-BF16_TOL = 1e-3  # port vs JAX's fused numerics, relative (tools/bf16_gap.py)
+BF16_TOL = 1e-3  # port vs JAX in the same numerics, relative (tools/bf16_gap.py)
 
 TINY = [
     "model.n_scales=2", "model.n_flow_steps=2", "model.coupling_width=8",
@@ -250,6 +252,22 @@ def _bf16_gap():
     return bf16_gap
 
 
+def _port_bpds(ckpt_dir, steps: int, fused: bool) -> np.ndarray:
+    """The port's held-out bits/dim per step and trajectory, (T, B), of the
+    oracle's checkpoint in ``ckpt_dir``, on its fixture, in the numerics
+    ``fused`` selects."""
+    from tpuflow_torch.configs import load_case
+    from tpuflow_torch.data import load_dataset
+    from tpuflow_torch.eval import load_eval_bundle, make_nll_eval
+
+    cfg = load_case(ORACLE_CASE, {"train.checkpoint_dir": str(ckpt_dir),
+                                  "data.fixture_version": 2, "model.use_pallas": fused})
+    model, norm, _ = load_eval_bundle(cfg, device="cpu")
+    ds = load_dataset(cfg.data, cfg.model, "test", norm=norm)
+    return make_nll_eval(model)(torch.from_numpy(ds.lf[:, :steps]),
+                                torch.from_numpy(ds.hf[:, :steps])).numpy()
+
+
 def _arrays(path) -> dict:
     """The arrays of an ``.npy`` ("") or ``.npz`` file, by name."""
     data = np.load(path)
@@ -282,12 +300,16 @@ def test_committed_oracle_through_the_exporter(tmp_path):
     assert (sorted(p.name for p in (tmp_path / "eval" / ORACLE_CASE).iterdir())
             == sorted(p.name for p in ORACLE_DIR.iterdir()))
 
-    # test_bpd: the port's fused numerics against the oracle's default bf16
-    # path, within JAX's own gap between the two (measured here) + 1e-3.
-    bpds = _bf16_gap().jax_bpds(ORACLE_CKPT, want["steps"], fused=True).mean(axis=1)
-    for key, fused in (("test_bpd", float(np.mean(bpds))), ("test_bpd_last_step", float(bpds[-1]))):
-        jax_gap = abs(fused - want[key])
-        assert abs(got[key] - want[key]) <= jax_gap + BF16_TOL * abs(want[key]), key
+    # test_bpd: the port's default numerics against the oracle's, the JAX
+    # default bf16 path's; the fused numerics, each package's, beside it.
+    for key in ("test_bpd", "test_bpd_last_step"):
+        assert abs(got[key] - want[key]) <= BF16_TOL * abs(want[key]), key
+    gap = _bf16_gap()
+    jax_f = gap.jax_bpds(ORACLE_CKPT, want["steps"], fused=True).mean(axis=1)
+    with torch.no_grad():
+        port_f = _port_bpds(tmp_path / "ckpt", want["steps"], fused=True).mean(axis=1)
+    for a, b in ((port_f.mean(), jax_f.mean()), (port_f[-1], jax_f[-1])):
+        assert abs(a - b) <= BF16_TOL * abs(b), (a, b)
 
     # The port's committed oracle, regenerated by make_eval_oracle: bit for bit.
     assert over == [o for o in t_make_eval_oracle.ORACLE_OVERRIDES

@@ -147,9 +147,9 @@ def _pallas_interpret():
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_affine_coupling_matches_jax_fused_path(_pallas_interpret, dtype, reverse):
-    """The port computes what the JAX package's fused coupling computes
-    (``use_pallas=True``: the Pallas kernel, here in interpret mode),
-    bf16 nets included: conv_in_1 of the conditioning rounded to the net
+    """The port at ``use_pallas=True`` computes what the JAX package's
+    fused coupling computes (``use_pallas=True``: the Pallas kernel, here
+    in interpret mode), bf16 nets included: conv_in_1 of the conditioning rounded to the net
     dtype, f32 accumulation inside. Tolerances: f32 as above; bf16 1e-2,
     as ``test_torch_kernels.py`` holds the plain version against
     ``xla_reference``: the two sides agree to ~5e-7 (measured), and the
@@ -164,7 +164,7 @@ def test_affine_coupling_matches_jax_fused_path(_pallas_interpret, dtype, revers
     kw = dict(width=8, layers=2, growth_rate=4)
     jm = JAffineCoupling(dtype=jdt, use_pallas=True, conv_layout="nhwc", **kw)
     v = _perturb(jm.init(jax.random.PRNGKey(27), jnp.asarray(x), jnp.asarray(cond)), 28)
-    tm = _load(AffineCoupling(C, CC, dtype=tdt, **kw), v)
+    tm = _load(AffineCoupling(C, CC, dtype=tdt, use_pallas=True, **kw), v)
     yj, ldj = jm.apply(v, jnp.asarray(x), jnp.asarray(cond), reverse=reverse)
     with torch.no_grad():
         yt, ldt = tm(_t(x), _t(cond), reverse=reverse)

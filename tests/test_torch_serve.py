@@ -158,7 +158,7 @@ def test_op_schema_and_fake_shapes():
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     xa, xb, h0c, net = _coupling(torch.float32, 1)
-    args = (xa, xb, h0c, net.win0, net.b0, list(net.wjs), net.bj0, True)
+    args = (xa, xb, h0c, net.win0, net.b0, list(net.wjs), net.bj0, net.fused, True)
     torch.library.opcheck(torch.ops.tpuflow_torch.fused_coupling.default, args)
     with FakeTensorMode() as mode:
         fake = [mode.from_tensor(a) if isinstance(a, torch.Tensor) else

@@ -11,11 +11,12 @@ sources.
     what ``tpuflow_torch.tools.weights_reference`` computes from the
     committed flagship on the CPU: its f32 rollout's summary bit for bit
     (deterministic on the CPU, one thread or eight, measured). Its bits/dim
-    is held to a fresh computation and to JAX's fused path in
-    ``tests/test_torch_bf16.py``.
+    (default numerics, the flagship's own) is held to a fresh computation
+    and to JAX's default path in ``tests/test_torch_bf16.py``.
   * The flagship's bf16 rollout stats (2 members x 2 steps, JAX's draws as
-    ``eps``) against JAX's fused numerics (``use_pallas`` through
-    ``xla_reference``), JAX in a subprocess with
+    ``eps``) against JAX's in each numerics: the default path's
+    (``use_pallas: false``, the flagship's own) and the fused coupling's
+    (``use_pallas`` through ``xla_reference``), JAX in a subprocess with
     ``--xla_allow_excess_precision=false`` as in ``tests/test_torch_bf16.py``.
     A reverse pass of 24 couplings at bf16 amplifies one-ulp roundings of
     conv inputs: JAX's own two evaluations of the program (excess precision
@@ -116,12 +117,13 @@ from tpuflow.configs.config import load_case
 from tpuflow.data.dataset import load_dataset
 from tpuflow.eval.loading import load_eval_bundle, resolve_temperature
 from tpuflow.eval.rollout import make_ensemble_rollout
-n, steps, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+import contextlib
+n, steps, out, fused = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4] == "fused"
 cfg = load_case("backward-step", {"train.checkpoint_dir": str(CHECKPOINTS["flagship"]),
-                                  "model.use_pallas": True, "data.fixture_version": 3})
+                                  "model.use_pallas": fused, "data.fixture_version": 3})
 model, variables, norm, meta = load_eval_bundle(cfg)
 lf = load_dataset(cfg.data, cfg.model, "test", norm=norm).lf[0, :steps]
-with jax_fused_path():
+with jax_fused_path() if fused else contextlib.nullcontext():
     stats = make_ensemble_rollout(model, n, resolve_temperature(cfg, meta), "stats")(
         variables, jax.numpy.asarray(lf), jax.random.PRNGKey(0))
 np.savez(out, mean=np.asarray(stats["mean"]), var=np.asarray(stats["var"]),
@@ -142,7 +144,9 @@ def _jax_eps(key, cfg, n, steps):
     return out
 
 
-def test_flagship_bf16_rollout_matches_jax_fused_path(tmp_path):
+def _flagship_bf16_rollout_vs_jax(tmp_path, numerics: str):
+    """The flagship's bf16 rollout stats at ``model.use_pallas`` of
+    ``numerics`` against JAX's in the same numerics (module docstring)."""
     n, steps = 2, 2
     procs = {}
     for excess in (False, True):
@@ -150,7 +154,7 @@ def test_flagship_bf16_rollout_matches_jax_fused_path(tmp_path):
         env = {**os.environ, "XLA_FLAGS": flags, "JAX_PLATFORMS": "cpu"}
         procs[excess] = subprocess.Popen(
             [sys.executable, "-c", _JAX_ROLLOUT, str(n), str(steps),
-             str(tmp_path / f"{excess}.npz")],
+             str(tmp_path / f"{excess}.npz"), numerics],
             cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
     jax_out = {}
     for excess, proc in procs.items():
@@ -159,7 +163,8 @@ def test_flagship_bf16_rollout_matches_jax_fused_path(tmp_path):
         jax_out[excess] = np.load(tmp_path / f"{excess}.npz")
         assert bool(jax_out[excess]["excess_precision"]) == excess
 
-    cfg, model, norm, meta = wr.load(FLAGSHIP, "cpu")
+    cfg, model, norm, meta = wr.load(FLAGSHIP, "cpu",
+                                     **{"model.use_pallas": numerics == "fused"})
     assert cfg.model.compute_dtype == "bfloat16"
     from tpuflow_torch.data import load_dataset
 
@@ -175,3 +180,13 @@ def test_flagship_bf16_rollout_matches_jax_fused_path(tmp_path):
         jax_gap = float(np.abs(jax_out[True][k] - ref).max())
         assert err.max() <= jax_gap + tol, (k, float(err.max()), jax_gap, tol)
         assert err.mean() <= tol, (k, float(err.mean()), tol)
+
+
+def test_flagship_bf16_rollout_matches_jax_fused_path(tmp_path):
+    _flagship_bf16_rollout_vs_jax(tmp_path, "fused")
+
+
+def test_flagship_bf16_rollout_matches_jax_default_path(tmp_path):
+    """The flagship's own numerics (its meta's ``use_pallas: false``)."""
+    assert wr.checkpoint_meta(FLAGSHIP)["config"]["model"]["use_pallas"] is False
+    _flagship_bf16_rollout_vs_jax(tmp_path, "default")

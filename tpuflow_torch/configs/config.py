@@ -7,10 +7,14 @@ fields of ``DataConfig`` and ``TrainConfig`` that the trainer reads,
 ``EvalConfig``, ``FinetuneConfig``, ``load_case``). The port keeps its
 own copy so that it imports nothing of the JAX package.
 
-``conv_layout``, ``flow_layout`` and ``use_pallas`` are accepted for
-parity with the JAX package's configs, but select nothing: the port
-always computes the NHWC semantics and always runs the fused coupling
-(the CUDA kernel on a GPU, its plain version on the CPU).
+``conv_layout`` and ``flow_layout`` are accepted for parity with the JAX
+package's configs, but select nothing: the port always computes the NHWC
+semantics. ``use_pallas`` selects the coupling's numerics, as it selects
+the path in the JAX package: false (the presets' setting and JAX's
+default) computes the XLA path's, every bf16 conv output and sum rounded
+to bf16; true computes the fused coupling's, f32 sums. Either way the
+port runs its fused coupling (the CUDA kernel on a GPU, its plain version
+on the CPU); see ``kernels/coupling_fused.py``.
 """
 
 from __future__ import annotations
@@ -48,10 +52,12 @@ class ModelConfig:
     # Dtype of the networks' convolutions; the flow arithmetic itself is
     # always float32.
     compute_dtype: str = "bfloat16"
-    # TPU layout and kernel choices of the JAX package; accepted, same
-    # function (see the module docstring).
+    # TPU layouts of the JAX package; accepted, same function (see the
+    # module docstring).
     conv_layout: str = "hwnc"
     flow_layout: str = "nhwc"
+    # The coupling's numerics: the JAX default path's (false) or its fused
+    # coupling's (true); see the module docstring.
     use_pallas: bool = False
     # Clip standard-normal latent draws at ±z_clip (0 = off).
     z_clip: float = 4.0

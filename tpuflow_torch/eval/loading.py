@@ -14,8 +14,15 @@ the port's strict config does not know (``data.loader``,
 ``train.fused_windows``, ``train.mesh_data``, ...; its ``finetune``
 section has the port's ``FinetuneConfig`` fields, and a fine-tuned
 checkpoint's meta adds the ``finetune`` summary of
-``tools/finetune.py``); only ``meta["config"]["data"]["fixture_version"]``
-and ``meta["learned_tau"]`` are read from it.
+``tools/finetune.py``); only ``meta["config"]["data"]["fixture_version"]``,
+``meta["config"]["model"]["use_pallas"]`` and ``meta["learned_tau"]`` are
+read from it.
+
+The model is built from the caller's config, as the JAX package builds
+it, so ``model.use_pallas`` (the coupling's numerics) is the config's. A
+checkpoint trained in the other numerics than the config asks for gets a
+loud warning: its bits/dim and samples would be another model's than the
+one that was trained and evaluated.
 """
 
 from __future__ import annotations
@@ -74,6 +81,15 @@ def load_eval_bundle(
             f"WARNING: checkpoint was trained on fixture v{ckpt_fx} but this evaluation "
             f"generates fixture v{cfg.data.fixture_version}: pass "
             f"data.fixture_version={ckpt_fx} unless the cross-fixture comparison is "
+            "intentional"
+        )
+    ckpt_pallas = ((meta.get("config") or {}).get("model") or {}).get("use_pallas")
+    if ckpt_pallas is not None and bool(ckpt_pallas) != cfg.model.use_pallas:
+        print(
+            f"WARNING: checkpoint was trained with model.use_pallas={bool(ckpt_pallas)} but "
+            f"this run computes the coupling with model.use_pallas={cfg.model.use_pallas} "
+            "(the other numerics): pass "
+            f"model.use_pallas={str(bool(ckpt_pallas)).lower()} unless the comparison is "
             "intentional"
         )
     return model, norm, meta

@@ -10,8 +10,10 @@ once) it calls the registered operator ``tpuflow_torch::fused_coupling``
 (:mod:`tpuflow_torch.kernels.ops`), which ``torch.export`` can trace;
 otherwise it goes through ``fused_coupling_autograd``, which packs the
 parameters inside the call so that gradients reach every one of them.
-Its numerics are the JAX package's fused path (see that module's
-docstring).
+``use_pallas`` selects the numerics, as the JAX flag of that name selects
+the path: False (the JAX default) the XLA path's bf16 rounding of every
+conv output and sum, True the fused coupling's f32 sums (see
+:mod:`tpuflow_torch.kernels.coupling_fused`). Both run the same kernel.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ class DenseBlockNet(nn.Module):
     each emit one joint conv whose column blocks are that source's
     contributions to every later target (growth layers j..L-1 and the
     ``out_channels`` head). ``joint_0`` carries the one bias per target.
+    ``fused`` is the numerics its packed weights carry (``PackedNet.fused``).
     With a generator, kernels get Flax's ``lecun_normal`` and the head
     columns start at zero (each coupling starts at the identity).
     """
@@ -55,11 +58,12 @@ class DenseBlockNet(nn.Module):
         growth_rate: int = 32,
         out_channels: int = 8,
         dtype: torch.dtype = torch.bfloat16,
+        fused: bool = False,
         generator: torch.Generator | None = None,
         device: torch.device | None = None,
     ):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.fused = dtype, fused
         tgt_widths = [growth_rate] * layers + [out_channels]
         self.conv_in_0 = _Conv3x3Params(in_channels, width, True, device)
         self.conv_in_1 = (
@@ -88,11 +92,12 @@ class DenseBlockNet(nn.Module):
         return convs + self.joints()
 
     def pack(self) -> PackedNet:
-        """The kernel's weight layout (net dtype kernels, f32 biases)."""
+        """The kernel's weight layout (net dtype kernels, f32 biases) and
+        the net's numerics."""
         joints = self.joints()
         return pack_net(
             self.conv_in_0.weight, self.conv_in_0.bias,
-            [j.weight for j in joints], joints[0].bias, self.dtype,
+            [j.weight for j in joints], joints[0].bias, self.dtype, fused=self.fused,
         )
 
     def cond_conv(self, cond: torch.Tensor) -> torch.Tensor:
@@ -103,7 +108,8 @@ class DenseBlockNet(nn.Module):
 
 class AffineCoupling(nn.Module):
     """y_a = (x_a + t) * sigmoid(raw + 2), (raw, t) = Net([x_b, cond]);
-    y = [y_a, x_b]. Reverse inverts it with the same net output."""
+    y = [y_a, x_b]. Reverse inverts it with the same net output.
+    ``use_pallas`` selects the numerics (the module docstring)."""
 
     def __init__(
         self,
@@ -114,6 +120,7 @@ class AffineCoupling(nn.Module):
         layers: int = 3,
         growth_rate: int = 32,
         dtype: torch.dtype = torch.bfloat16,
+        use_pallas: bool = False,
         generator: torch.Generator | None = None,
         device: torch.device | None = None,
     ):
@@ -122,7 +129,7 @@ class AffineCoupling(nn.Module):
         self.net = DenseBlockNet(
             channels - self.ca, cond_channels, width=width, layers=layers,
             growth_rate=growth_rate, out_channels=2 * self.ca, dtype=dtype,
-            generator=generator, device=device,
+            fused=use_pallas, generator=generator, device=device,
         )
 
     def forward(
@@ -144,5 +151,6 @@ class AffineCoupling(nn.Module):
         net, joints = self.net, self.net.joints()
         return fused_coupling_autograd(
             xa, xb, h0c, net.conv_in_0.weight, net.conv_in_0.bias,
-            [j.weight for j in joints], joints[0].bias, net.dtype, reverse=reverse,
+            [j.weight for j in joints], joints[0].bias, net.dtype, fused=net.fused,
+            reverse=reverse,
         )

@@ -12,16 +12,28 @@ the logdet:
     counterpart of the JAX package's ``xla_reference``. The CPU runs it,
     and the kernel is held against it on the card.
 
-Numerics. The port follows the fused semantics of the JAX package
-(``xla_reference``, which is what ``use_pallas=True`` computes on a TPU):
-every product of net-dtype operands accumulates in float32, and only the
-relu features are rounded to the net dtype. The JAX package's default XLA
-path at bfloat16 rounds each conv's output to bfloat16 instead. So at
-float32 the port matches the JAX package tightly on every path, and at
-bfloat16 it matches ``xla_reference`` but the default JAX path only
-loosely. The plain version reproduces float32 accumulation of bfloat16
-operands on the CPU by rounding inputs and weights to bfloat16 and then
-convolving in float32: products of bfloat16 values are exact in float32.
+Numerics: two modes, chosen by ``PackedNet.fused`` (the model sets it from
+``model.use_pallas``). In both, every product of net-dtype operands
+accumulates in float32, and the affine and the logdet are float32.
+
+  * ``fused=True``: the JAX package's fused coupling (``xla_reference``,
+    what ``use_pallas=True`` computes on a TPU). The sums stay float32;
+    only the relu features are rounded to the net dtype.
+  * ``fused=False``: the JAX package's default XLA path (``use_pallas:
+    false``, the presets' and every committed checkpoint's setting). Each
+    conv's output is rounded to the net dtype, and so is every sum flax
+    computes in it: with r() the rounding, conv_in gives
+    ``r(r(r(conv) + r(b0)) + h0c)``, joint_0 ``r(r(conv) + r(bj0))``, and
+    joint j > 0 adds each column block into its target as ``acc =
+    r(acc + r(conv))``, in the order j = 0, 1, ...; the head (raw, t) is
+    that rounded target.
+
+At float32 r() is the identity, so the two modes are bit-equal. The
+plain version reproduces float32 accumulation of bfloat16 operands on the
+CPU by rounding inputs and weights to bfloat16 and then convolving in
+float32 (products of bfloat16 values are exact in float32); it writes r()
+as ``.to(net dtype).float()``, so autograd rounds the cotangents at the
+same points, as JAX's bfloat16 VJP does.
 
 Weights are packed (:func:`pack_net`): conv kernels as (9*Cin, n_pad) in
 the net dtype with rows ordered (dy, dx, cin) and the Cout columns padded
@@ -222,17 +234,20 @@ def _launch(b, h, w, ca, cb, width, growth, layers) -> _Launch:
 
 
 class PackedNet(NamedTuple):
-    """A coupling net's weights in the kernel's layout.
+    """A coupling net's weights in the kernel's layout, and its numerics.
 
     win0: (9*cb, n_pad(width)) conv_in_0 kernel, net dtype; b0: (width,)
     f32; wjs: joint_j kernels (9*Cin_j, n_pad(total_j)), net dtype; bj0:
     (total_0,) f32. The true widths come from the biases and the rows.
+    fused: the JAX package's fused numerics (True) or its default XLA
+    path's (False); see the module docstring.
     """
 
     win0: torch.Tensor
     b0: torch.Tensor
     wjs: tuple[torch.Tensor, ...]
     bj0: torch.Tensor
+    fused: bool = True
 
     @property
     def width(self) -> int:
@@ -273,13 +288,15 @@ def unpack_kernel(packed: torch.Tensor, cout: int) -> torch.Tensor:
     return packed[:, :cout].reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
 
 
-def pack_net(win0, b0, wjs, bj0, dtype: torch.dtype) -> PackedNet:
-    """Pack OIHW kernels and biases, detached, for :func:`fused_coupling`."""
+def pack_net(win0, b0, wjs, bj0, dtype: torch.dtype, *, fused: bool = True) -> PackedNet:
+    """Pack OIHW kernels and biases, detached, for :func:`fused_coupling`,
+    in the numerics ``fused`` selects."""
     return PackedNet(
         pack_kernel(win0.detach(), dtype),
         b0.detach().float().contiguous(),
         tuple(pack_kernel(w.detach(), dtype) for w in wjs),
         bj0.detach().float().contiguous(),
+        fused,
     )
 
 
@@ -291,7 +308,8 @@ def fused_coupling_reference(
     *,
     reverse: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the fused coupling (NHWC, f32 accumulation).
+    """Plain PyTorch version of the fused coupling (NHWC, f32 accumulation),
+    in the numerics ``net.fused`` selects.
 
     xa (B,H,W,ca), xb (B,H,W,cb); h0c (1 or B, H, W, width) or None.
     Returns (y (B,H,W,ca+cb) f32, ld (B,) f32; ld negated in reverse).
@@ -301,25 +319,28 @@ def fused_coupling_reference(
     ca = xa.shape[-1]
     tgt_widths = [growth] * L + [2 * ca]
 
+    def r(v):  # the default path's rounding to the net dtype
+        return v if net.fused else v.to(nd).float()
+
     def conv(p, w_packed, cout):
         k = unpack_kernel(w_packed[:, :cout].to(nd).float(), cout)
         x = p.to(nd).float().permute(0, 3, 1, 2)
-        return F.conv2d(x, k, padding=1).permute(0, 2, 3, 1)
+        return r(F.conv2d(x, k, padding=1).permute(0, 2, 3, 1))
 
-    h0 = conv(xb, net.win0, net.width) + net.b0
+    h0 = r(conv(xb, net.win0, net.width) + r(net.b0))
     if h0c is not None:
-        h0 = h0 + h0c.to(nd).float()
+        h0 = r(h0 + h0c.to(nd).float())
     feat = torch.relu(h0)
     accs: list = [None] * (L + 1)
     for j, cout in enumerate(net.couts):
         yj = conv(feat, net.wjs[j], cout)
         if j == 0:
-            yj = yj + net.bj0
+            yj = r(yj + r(net.bj0))
         off = 0
         for t in range(j, L + 1):
             sl = yj[..., off : off + tgt_widths[t]]
             off += tgt_widths[t]
-            accs[t] = sl if accs[t] is None else accs[t] + sl
+            accs[t] = sl if accs[t] is None else r(accs[t] + sl)
         if j < L:
             feat = torch.relu(accs[j])
     raw, t_shift = accs[L][..., :ca], accs[L][..., ca:]
@@ -345,7 +366,7 @@ def _entry(dtype: torch.dtype):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         scratch = [ptr, ptr] if dtype == torch.float32 else [ptr, ptr, ptr]
         fn.argtypes = ([ptr, ptr, ptr, i32, ptr, ptr, ctypes.POINTER(ptr), ptr, ptr, ptr]
-                       + scratch + [i32] * 9 + [ctypes.POINTER(i32), ptr])
+                       + scratch + [i32] * 10 + [ctypes.POINTER(i32), ptr])
         fn.restype = ctypes.c_int
         if lib.tpf_plan_ints() != len(TilePlan._fields):
             raise RuntimeError("coupling_fused: the kernel's Plan struct does not match "
@@ -464,7 +485,8 @@ def fused_coupling(
             0 if h0c is None else h0c.shape[0],
             net.win0.data_ptr(), net.b0.data_ptr(), wjs, net.bj0.data_ptr(),
             y.data_ptr(), ld.data_ptr(), *scratch,
-            b, h, w, ca, cb, width, growth, L, int(reverse), layout, stream,
+            b, h, w, ca, cb, width, growth, L, int(reverse), int(not net.fused), layout,
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_coupling kernel launch failed: cudaError {err}")
@@ -476,10 +498,10 @@ class _FusedCoupling(torch.autograd.Function):
     """See :func:`fused_coupling_autograd`."""
 
     @staticmethod
-    def forward(ctx, xa, xb, h0c, dtype, reverse, win0, b0, bj0, *wjs):
-        ctx.dtype, ctx.reverse = dtype, reverse
+    def forward(ctx, xa, xb, h0c, dtype, fused, reverse, win0, b0, bj0, *wjs):
+        ctx.dtype, ctx.fused, ctx.reverse = dtype, fused, reverse
         ctx.save_for_backward(xa, xb, h0c, win0, b0, bj0, *wjs)
-        net = pack_net(win0, b0, wjs, bj0, dtype)
+        net = pack_net(win0, b0, wjs, bj0, dtype, fused=fused)
         return fused_coupling(
             xa.detach(), xb.detach(), None if h0c is None else h0c.detach(), net,
             reverse=reverse,
@@ -488,21 +510,22 @@ class _FusedCoupling(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, gld):
         saved = ctx.saved_tensors
-        # needs_input_grad follows forward's arguments; drop dtype, reverse.
-        needs = ctx.needs_input_grad[:3] + ctx.needs_input_grad[5:]
+        # needs_input_grad follows forward's arguments; drop dtype, fused,
+        # reverse.
+        needs = ctx.needs_input_grad[:3] + ctx.needs_input_grad[6:]
         with torch.enable_grad():
             live = [None if a is None else a.detach().requires_grad_(n)
                     for a, n in zip(saved, needs)]
             xa, xb, h0c, win0, b0, bj0, *wjs = live
             net = PackedNet(
                 pack_kernel(win0, ctx.dtype), b0.float(),
-                tuple(pack_kernel(w, ctx.dtype) for w in wjs), bj0.float(),
+                tuple(pack_kernel(w, ctx.dtype) for w in wjs), bj0.float(), ctx.fused,
             )
             y, ld = fused_coupling_reference(xa, xb, h0c, net, reverse=ctx.reverse)
             wrt = [a for a, n in zip(live, needs) if n and a is not None]
             grads = iter(torch.autograd.grad((y, ld), wrt, (gy, gld), allow_unused=True))
         out = [next(grads) if n and a is not None else None for a, n in zip(live, needs)]
-        return (*out[:3], None, None, *out[3:])
+        return (*out[:3], None, None, None, *out[3:])
 
 
 def fused_coupling_autograd(
@@ -515,11 +538,13 @@ def fused_coupling_autograd(
     bj0: torch.Tensor,
     dtype: torch.dtype,
     *,
+    fused: bool = True,
     reverse: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`fused_coupling` from the OIHW parameters (conv_in_0 kernel
     ``win0`` and bias ``b0``, joint kernels ``wjs``, joint_0 bias ``bj0``),
-    packed in net dtype ``dtype`` inside the call; differentiable in xa,
-    xb, h0c and every parameter. The forward launches the kernel on CUDA
-    tensors; the backward differentiates the plain version."""
-    return _FusedCoupling.apply(xa, xb, h0c, dtype, reverse, win0, b0, bj0, *wjs)
+    packed in net dtype ``dtype`` and numerics ``fused`` inside the call;
+    differentiable in xa, xb, h0c and every parameter. The forward launches
+    the kernel on CUDA tensors; the backward differentiates the plain
+    version in the same numerics."""
+    return _FusedCoupling.apply(xa, xb, h0c, dtype, fused, reverse, win0, b0, bj0, *wjs)

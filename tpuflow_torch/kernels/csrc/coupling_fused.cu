@@ -14,6 +14,15 @@
 // Every product of net-dtype operands accumulates in float32, as the TPU
 // kernel's matmuls do; relu features are stored in the net dtype.
 //
+// Two numerics (round_outputs, bf16 only; at f32 rounding is the identity):
+//   0, the JAX package's fused coupling: the sums above stay f32.
+//   1, its default XLA path (model.use_pallas false): with r() the
+//      round-to-nearest bf16 of an f32 value, conv_in gives
+//      r(r(r(conv) + r(b0)) + h0c), joint_0 r(r(conv) + r(bj0)), and a
+//      joint j > 0 adds into each target as acc = r(acc + r(conv)). The
+//      running sums keep their f32 slots and hold bf16 values; the head
+//      (raw, t) is the rounded target L.
+//
 // What bounds it on this card: operations. At the rollout's shapes a
 // launch does 104k-166k MACs per pixel against ~0.5 KB of HBM traffic per
 // pixel, far above the H100's ~295 FLOP/byte ridge, so the bf16 path has
@@ -81,6 +90,11 @@ typedef __nv_bfloat16 bf16;
 
 // relu that keeps NaN, like jnp.maximum(x, 0) and torch.relu.
 __device__ __forceinline__ float relu(float v) { return v < 0.f ? 0.f : v; }
+
+// Round to the nearest bf16 value, kept as f32.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 __device__ __forceinline__ float log_sigmoid(float x) {
   return x < 0.f ? x - log1pf(expf(x)) : -log1pf(expf(-x));
@@ -388,6 +402,8 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
 //               affine to its pixels from the output stage, writes y =
 //               [ya, xb] and one logdet partial to ld_part[b * p.tiles +
 //               tile].
+// round_outputs: each sum above in the default path's bf16 rounding (see
+// the top of the file).
 // The feature buffers a joint layer reads have pixel stride cin_pad (its
 // producer's ld_out), so their halo is copied in whole 16-byte chunks; the
 // copies zero-fill past cin and past cout, so pad columns are never read.
@@ -401,7 +417,8 @@ conv3x3_mma_kernel(const void* __restrict__ in_, int cin,
                    float* __restrict__ acc, int first,
                    const float* __restrict__ xa,
                    const float* __restrict__ xb, float* __restrict__ y,
-                   float* __restrict__ ld_part, int ca, int cb, int reverse) {
+                   float* __restrict__ ld_part, int ca, int cb, int reverse,
+                   int round_outputs) {
   extern __shared__ __align__(16) unsigned char dsmem[];
   bf16* s_a = reinterpret_cast<bf16*>(dsmem);
   bf16* s_b = reinterpret_cast<bf16*>(dsmem + p.b_off);
@@ -574,10 +591,13 @@ conv3x3_mma_kernel(const void* __restrict__ in_, int cin,
   // Epilogue. Fragment (i, j) holds rows g and g + 8 of m16 tile i and
   // columns 2 * t4, 2 * t4 + 1 of n8 tile j. First, in registers: + bias
   // (conv_in, joint_0), + h0c (conv_in), + the running sums (the other
-  // joints). A column past cout (odd cout) takes junk that nothing copies
-  // out.
+  // joints), each sum rounded to bf16 with round_outputs. A column past
+  // cout (odd cout) takes junk that nothing copies out.
   const int g = lane >> 2, t4 = lane & 3;
   auto bias_at = [&](int c) { return c < cout ? bias[c] : 0.f; };
+  auto add = [&](float a, float b) {
+    return round_outputs ? round_bf16(a + round_bf16(b)) : a + b;
+  };
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -591,18 +611,22 @@ conv3x3_mma_kernel(const void* __restrict__ in_, int cin,
         if (c >= cout) continue;
         float* v = &accum[i][j][2 * h];
         if (MODE == kConvIn || first) {
-          v[0] += bias_at(c);
-          v[1] += bias_at(c + 1);
+          // r(r(conv) + r(bias)): add(a, b) is r(a + r(b)).
+          if (round_outputs) v[0] = round_bf16(v[0]), v[1] = round_bf16(v[1]);
+          v[0] = add(v[0], bias_at(c));
+          v[1] = add(v[1], bias_at(c + 1));
         } else {
-          v[0] += s_t[pm * p.t_stride + c];
-          v[1] += s_t[pm * p.t_stride + c + 1];
+          // r(acc + r(conv)): the running sums already hold bf16 values.
+          v[0] = add(s_t[pm * p.t_stride + c], v[0]);
+          v[1] = add(s_t[pm * p.t_stride + c + 1], v[1]);
         }
+        // h0c is bf16 already, so add() rounds only the sum.
         if (MODE == kConvIn && h0c_tile) {
-          v[0] += __bfloat162float(s_h[pm * p.t_stride + c]);
-          v[1] += __bfloat162float(s_h[pm * p.t_stride + c + 1]);
+          v[0] = add(v[0], __bfloat162float(s_h[pm * p.t_stride + c]));
+          v[1] = add(v[1], __bfloat162float(s_h[pm * p.t_stride + c + 1]));
         } else if (MODE == kConvIn && h0c != nullptr) {
-          v[0] += __bfloat162float(h0c[hrow * cout + c]);
-          if (c + 1 < cout) v[1] += __bfloat162float(h0c[hrow * cout + c + 1]);
+          v[0] = add(v[0], __bfloat162float(h0c[hrow * cout + c]));
+          if (c + 1 < cout) v[1] = add(v[1], __bfloat162float(h0c[hrow * cout + c + 1]));
         }
       }
     }
@@ -705,7 +729,8 @@ cudaError_t launch_mma(const Plan& p, int B, cudaStream_t stream,
                        int h0c_batch, bf16* feat_out, int relu_cols,
                        float* acc, int first,
                        const float* xa, const float* xb, float* y,
-                       float* ld_part, int ca, int cb, int reverse) {
+                       float* ld_part, int ca, int cb, int reverse,
+                       int round_outputs) {
   // Above 48 KB a block's dynamic shared memory must be allowed first, on
   // each device (a function's attributes belong to one device's context:
   // a process that drives several cards launches on each); done once per
@@ -728,7 +753,7 @@ cudaError_t launch_mma(const Plan& p, int B, cudaStream_t stream,
     return cudaErrorInvalidValue;
   conv3x3_mma_kernel<MODE><<<dim3(p.tiles, B), threads, p.smem, stream>>>(
       in, cin, wgt, cout, H, W, p, bias, h0c, h0c_batch, feat_out, relu_cols,
-      acc, first, xa, xb, y, ld_part, ca, cb, reverse);
+      acc, first, xa, xb, y, ld_part, ca, cb, reverse, round_outputs);
   return cudaGetLastError();
 }
 
@@ -736,8 +761,8 @@ int run_bf16(const void* xa, const void* xb, const void* h0c, int h0c_batch,
              const void* win0, const void* b0, const void* const* wjs,
              const void* bj0, void* y, void* ld, void* feat, void* acc,
              void* ld_part, int B, int H, int W, int ca, int cb, int width,
-             int growth, int layers, int reverse, const int* plans,
-             cudaStream_t stream) {
+             int growth, int layers, int reverse, int round_outputs,
+             const int* plans, cudaStream_t stream) {
   if (W < 1 || H < 1 || B < 1) return cudaErrorInvalidValue;
   const Plan* plan = reinterpret_cast<const Plan*>(plans);
   const size_t npix = (size_t)B * H * W;
@@ -753,7 +778,8 @@ int run_bf16(const void* xa, const void* xb, const void* h0c, int h0c_batch,
   cudaError_t err = launch_mma<kConvIn>(
       plan[0], B, stream, xb, cb, static_cast<const bf16*>(win0), width, H, W,
       static_cast<const float*>(b0), static_cast<const bf16*>(h0c), h0c_batch,
-      out, width, nullptr, 1, nullptr, nullptr, nullptr, nullptr, 0, 0, 0);
+      out, width, nullptr, 1, nullptr, nullptr, nullptr, nullptr, 0, 0, 0,
+      round_outputs);
   if (err != cudaSuccess) return err;
 
   int cout = layers * growth + 2 * ca;
@@ -766,11 +792,13 @@ int run_bf16(const void* xa, const void* xb, const void* h0c, int h0c_batch,
     if (j < layers)
       err = launch_mma<kJoint>(plan[1 + j], B, stream, src, cin, w, cout, H, W,
                                bias, nullptr, 0, out, growth, accf, j == 0,
-                               nullptr, nullptr, nullptr, nullptr, 0, 0, 0);
+                               nullptr, nullptr, nullptr, nullptr, 0, 0, 0,
+                               round_outputs);
     else
       err = launch_mma<kJointLast>(plan[1 + j], B, stream, src, cin, w, cout,
                                    H, W, bias, nullptr, 0, nullptr, 0, accf,
-                                   j == 0, xa_, xb_, y_, part, ca, cb, reverse);
+                                   j == 0, xa_, xb_, y_, part, ca, cb, reverse,
+                                   round_outputs);
     if (err != cudaSuccess) return err;
   }
   const int tiles = plan[1 + layers].tiles;
@@ -788,15 +816,17 @@ int tpf_plan_ints() { return kPlanInts; }
 
 // Scratch: feat holds B*H*W*(width + layers*growth) net-dtype values,
 // acc holds B*H*W*(layers*growth + 2*ca) floats. h0c may be null
-// (h0c_batch 0), else its batch is 1 or B. ldw: the packed weights' row
-// strides, conv_in then joint_0..L. Returns a cudaError_t.
+// (h0c_batch 0), else its batch is 1 or B. round_outputs is ignored: at
+// f32 the default path's rounding is the identity. ldw: the packed
+// weights' row strides, conv_in then joint_0..L. Returns a cudaError_t.
 int tpf_fused_coupling_f32(const void* xa, const void* xb, const void* h0c,
                            int h0c_batch, const void* win0, const void* b0,
                            const void* const* wjs, const void* bj0, void* y,
                            void* ld, void* feat, void* acc, int B, int H,
                            int W, int ca, int cb, int width, int growth,
-                           int layers, int reverse, const int* ldw,
-                           void* stream) {
+                           int layers, int reverse, int round_outputs,
+                           const int* ldw, void* stream) {
+  (void)round_outputs;
   return run_f32(xa, xb, h0c, h0c_batch, win0, b0, wjs, bj0, y, ld, feat,
                  acc, B, H, W, ca, cb, width, growth, layers, reverse, ldw,
                  static_cast<cudaStream_t>(stream));
@@ -804,18 +834,21 @@ int tpf_fused_coupling_f32(const void* xa, const void* xb, const void* h0c,
 
 // As the f32 entry, except the scratch: feat holds B*H*W times the sum of
 // the plans' ld_out bf16 values, acc B*H*W*ld_acc floats, ld_part B * (the
-// last layer's tiles) floats. plans: (layers + 2) * tpf_plan_ints() ints,
-// conv_in then joint_0..L.
+// last layer's tiles) floats. round_outputs: 1 for the default path's
+// numerics, 0 for the fused coupling's. plans: (layers + 2) *
+// tpf_plan_ints() ints, conv_in then joint_0..L.
 int tpf_fused_coupling_bf16(const void* xa, const void* xb, const void* h0c,
                             int h0c_batch, const void* win0, const void* b0,
                             const void* const* wjs, const void* bj0, void* y,
                             void* ld, void* feat, void* acc, void* ld_part,
                             int B, int H, int W, int ca, int cb, int width,
                             int growth, int layers, int reverse,
-                            const int* plans, void* stream) {
+                            int round_outputs, const int* plans,
+                            void* stream) {
   return run_bf16(xa, xb, h0c, h0c_batch, win0, b0, wjs, bj0, y, ld, feat,
                   acc, ld_part, B, H, W, ca, cb, width, growth, layers,
-                  reverse, plans, static_cast<cudaStream_t>(stream));
+                  reverse, round_outputs, plans,
+                  static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

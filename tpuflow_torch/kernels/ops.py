@@ -12,9 +12,10 @@ program holds one node per coupling and calls the kernel when it runs:
     y (B, H, W, ca + cb) and ld (B,), float32, on the inputs' device.
 
 Any other device has no implementation and raises. The operator's
-arguments are a :class:`PackedNet`'s fields, flattened; the net dtype,
-width, growth and layers come from the tensors, as the ``PackedNet``
-properties derive them. Importing this module registers the operator; a
+arguments are a :class:`PackedNet`'s fields, flattened (``fused``, the
+numerics, a bool an exported program holds as a constant); the net
+dtype, width, growth and layers come from the tensors, as the
+``PackedNet`` properties derive them. Importing this module registers the operator; a
 program that ``torch.export.load`` reads must import it first.
 
 The operator carries no gradient: the rollout's packed path calls it
@@ -30,8 +31,8 @@ from tpuflow_torch.kernels import coupling_fused
 from tpuflow_torch.kernels.coupling_fused import PackedNet
 
 
-def _net(win0, b0, wjs, bj0) -> PackedNet:
-    return PackedNet(win0, b0, tuple(wjs), bj0)
+def _net(win0, b0, wjs, bj0, fused) -> PackedNet:
+    return PackedNet(win0, b0, tuple(wjs), bj0, fused)
 
 
 @torch.library.custom_op("tpuflow_torch::fused_coupling", mutates_args=(), device_types="cuda")
@@ -43,20 +44,22 @@ def fused_coupling_op(
     b0: torch.Tensor,
     wjs: list[torch.Tensor],
     bj0: torch.Tensor,
+    fused: bool,
     reverse: bool,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The fused coupling on CUDA tensors: the kernel, or raise."""
-    return coupling_fused.fused_coupling(xa, xb, h0c, _net(win0, b0, wjs, bj0), reverse=reverse)
+    return coupling_fused.fused_coupling(xa, xb, h0c, _net(win0, b0, wjs, bj0, fused),
+                                         reverse=reverse)
 
 
 @fused_coupling_op.register_kernel("cpu")
-def _cpu(xa, xb, h0c, win0, b0, wjs, bj0, reverse):
-    return coupling_fused.fused_coupling_reference(xa, xb, h0c, _net(win0, b0, wjs, bj0),
+def _cpu(xa, xb, h0c, win0, b0, wjs, bj0, fused, reverse):
+    return coupling_fused.fused_coupling_reference(xa, xb, h0c, _net(win0, b0, wjs, bj0, fused),
                                                    reverse=reverse)
 
 
 @fused_coupling_op.register_fake
-def _fake(xa, xb, h0c, win0, b0, wjs, bj0, reverse):
+def _fake(xa, xb, h0c, win0, b0, wjs, bj0, fused, reverse):
     b, h, w, ca = xa.shape
     y = xa.new_empty((b, h, w, ca + xb.shape[-1]), dtype=torch.float32)
     return y, xa.new_empty((b,), dtype=torch.float32)
@@ -73,4 +76,4 @@ def fused_coupling(
     """:func:`coupling_fused.fused_coupling`'s signature, through the
     registered operator."""
     return torch.ops.tpuflow_torch.fused_coupling(
-        xa, xb, h0c, net.win0, net.b0, list(net.wjs), net.bj0, reverse)
+        xa, xb, h0c, net.win0, net.b0, list(net.wjs), net.bj0, net.fused, reverse)

@@ -47,13 +47,14 @@ class GlowStep(nn.Module):
     """One step of flow: ActNorm -> InvConv1x1(LU) -> AffineCoupling."""
 
     def __init__(self, channels, cond_channels, *, width, layers, growth_rate,
-                 dtype, generator=None, device=None):
+                 dtype, use_pallas=False, generator=None, device=None):
         super().__init__()
         self.actnorm = ActNorm(channels, device=device)
         self.invconv = InvConv1x1LU(channels, generator=generator, device=device)
         self.coupling = AffineCoupling(
             channels, cond_channels, width=width, layers=layers,
-            growth_rate=growth_rate, dtype=dtype, generator=generator, device=device,
+            growth_rate=growth_rate, dtype=dtype, use_pallas=use_pallas,
+            generator=generator, device=device,
         )
 
     def forward(self, x, cond, *, reverse=False, w_inv=None, packed=None):
@@ -84,6 +85,7 @@ class MultiScaleGlow(nn.Module):
         layers: int = 3,
         growth_rate: int = 32,
         dtype: torch.dtype = torch.bfloat16,
+        use_pallas: bool = False,
         z_clip: float = 0.0,
         generator: torch.Generator | None = None,
         device: torch.device | None = None,
@@ -98,7 +100,7 @@ class MultiScaleGlow(nn.Module):
                     f"scale{l}_step{k}",
                     GlowStep(c, cond_channels, width=width, layers=layers,
                              growth_rate=growth_rate, dtype=dtype,
-                             generator=generator, device=device),
+                             use_pallas=use_pallas, generator=generator, device=device),
                 )
             if l < n_scales - 1:
                 self.add_module(
@@ -115,8 +117,8 @@ class MultiScaleGlow(nn.Module):
         return getattr(self, f"split{l}")
 
     def pack_couplings(self) -> list[list[PackedNet]]:
-        """Every coupling net's packed weights, [scale][step]; packed
-        once per rollout, outside the time loop."""
+        """Every coupling net's packed weights and numerics, [scale][step];
+        packed once per rollout, outside the time loop."""
         return [[self.step(l, k).coupling.net.pack() for k in range(self.n_steps)]
                 for l in range(self.n_scales)]
 

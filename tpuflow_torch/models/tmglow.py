@@ -132,6 +132,7 @@ class TMGlow(nn.Module):
             layers=cfg.coupling_layers,
             growth_rate=cfg.growth_rate,
             dtype=self.dtype,
+            use_pallas=cfg.use_pallas,
             z_clip=cfg.z_clip,
             generator=gen,
         )

@@ -14,7 +14,9 @@ An artifact (``tools/export_rollout.py`` writes it) is a zip of three members:
     the inverse 1x1 convs, the packed coupling nets and the HF
     normalization are baked in;
   * ``program.json``: the device and torch version it was exported on,
-    the ensemble size and the per-scale shapes of the draws and the state.
+    the ensemble size, the per-scale shapes of the draws and the state,
+    and ``use_pallas``, the coupling numerics the step computes (a record:
+    the step holds them as constants of its K2 calls).
 
 :class:`ServedRollout` holds the time loop: step t draws its eps from one
 ``torch.Generator(device).manual_seed(seed)``, scale by scale in the order

@@ -17,7 +17,9 @@ so the port exports two programs and the loader holds the loop:
     state, that step's standard-normal draws and the per-scale tau in; the
     new state and the ensemble's physical-unit mean and variance (ddof 0)
     out. Every inverse 1x1 conv and packed coupling net is computed once,
-    here, and held as a buffer, as the JAX artifact closes over them. The
+    here, and held as a buffer, as the JAX artifact closes over them; the
+    nets' numerics (``model.use_pallas``) is a constant of the exported
+    program. The
     step has no overflow redraw (its host check would wait on the device
     every step); the JAX artifact is built without it too.
 
@@ -91,6 +93,7 @@ class RolloutStep(nn.Module):
         self.packs = nn.ModuleList(
             nn.ModuleList(_Tensors([n.win0, n.b0, n.bj0, *n.wjs]) for n in row)
             for row in model.glow.pack_couplings())
+        self.fused = model.cfg.use_pallas
         dev = model.device
         self.register_buffer("hf_mean", torch.as_tensor(norm.hf_mean, device=dev))
         self.register_buffer("hf_std", torch.as_tensor(norm.hf_std, device=dev))
@@ -102,7 +105,7 @@ class RolloutStep(nn.Module):
             packs.append([])
             for held in row:
                 win0, b0, bj0, *wjs = held.tensors()
-                packs[-1].append(PackedNet(win0, b0, tuple(wjs), bj0))
+                packs[-1].append(PackedNet(win0, b0, tuple(wjs), bj0, self.fused))
         x, state = self.model.sample_from_feats(
             feats, state, temperature=tau, eps=eps,
             inv_caches=[row.tensors() for row in self.inv], packs=packs)
@@ -142,6 +145,7 @@ def build_exported(cfg: CaseConfig, model: TMGlow, norm: NormStats, n_samples: i
         "lf_input_shape": list(lf.shape),
         "latent_shapes": [list(s) for s in latent_shapes(mc, n)],
         "state_shapes": [list(s) for s in state_shapes],
+        "use_pallas": mc.use_pallas,  # the coupling numerics the step holds
     }
     return encoder, step, program
 

@@ -6,7 +6,9 @@
 ``train.checkpoint_dir`` of the port holding ``backward-step/ckpt_*.pt``.
 Two numbers are computed from it on ``--device``:
 
-  * the held-out bits/dim at the checkpoint's bf16 nets: the test split of
+  * the held-out bits/dim at the checkpoint's bf16 nets, in its numerics
+    (its meta's ``model.use_pallas``: the default path's on every committed
+    checkpoint): the test split of
     the fixture version it was trained on, the first :data:`BPD_STEPS`
     steps of its 4 trajectories, teacher-forced from a zero ConvLSTM state
     and averaged (``tools/bf16_gap.py``'s "port" number);
@@ -43,31 +45,41 @@ ROLLOUT_SEED, ROLLOUT_MEMBERS, ROLLOUT_STEPS = 0, 4, 4
 GRID = 16
 
 
-def load(weights_dir, device, **overrides):
-    """(config, model on ``device``, norm, meta) of the case's latest
-    checkpoint under ``weights_dir``, the config at the fixture version the
-    checkpoint was trained on plus ``overrides``."""
-    from tpuflow_torch.configs import load_case
-    from tpuflow_torch.eval import load_eval_bundle
+def checkpoint_meta(weights_dir) -> dict:
+    """The meta of the case's latest checkpoint under ``weights_dir``."""
     from tpuflow_torch.train import Checkpointer
 
-    step = Checkpointer(pathlib.Path(weights_dir) / CASE).latest_step()
+    ckpt = Checkpointer(pathlib.Path(weights_dir) / CASE)
+    step = ckpt.latest_step()
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {pathlib.Path(weights_dir) / CASE}")
-    meta = Checkpointer(pathlib.Path(weights_dir) / CASE).restore(step, "cpu")["meta"]
+    return ckpt.restore(step, "cpu")["meta"]
+
+
+def load(weights_dir, device, **overrides):
+    """(config, model on ``device``, norm, meta) of the case's latest
+    checkpoint under ``weights_dir``, the config at the fixture version and
+    the coupling numerics (``model.use_pallas``) the checkpoint was trained
+    with, plus ``overrides``."""
+    from tpuflow_torch.configs import load_case
+    from tpuflow_torch.eval import load_eval_bundle
+
+    meta = checkpoint_meta(weights_dir)
     over = {"train.checkpoint_dir": str(weights_dir),
-            "data.fixture_version": meta["config"]["data"]["fixture_version"], **overrides}
+            "data.fixture_version": meta["config"]["data"]["fixture_version"],
+            "model.use_pallas": meta["config"]["model"]["use_pallas"], **overrides}
     cfg = load_case(CASE, over)
     model, norm, meta = load_eval_bundle(cfg, device=device)
     return cfg, model, norm, meta
 
 
-def heldout_bpd(weights_dir, device, steps: int = BPD_STEPS) -> float:
-    """The held-out bits/dim at the checkpoint's own dtype."""
+def heldout_bpd(weights_dir, device, steps: int = BPD_STEPS, **overrides) -> float:
+    """The held-out bits/dim at the checkpoint's own dtype and numerics
+    (``overrides``, key=value, may set others)."""
     from tpuflow_torch.data import load_dataset
     from tpuflow_torch.eval import make_nll_eval
 
-    cfg, model, norm, _ = load(weights_dir, device)
+    cfg, model, norm, _ = load(weights_dir, device, **overrides)
     ds = load_dataset(cfg.data, cfg.model, "test", norm=norm)
     bpds = make_nll_eval(model)(torch.from_numpy(ds.lf[:, :steps]).to(model.device),
                                 torch.from_numpy(ds.hf[:, :steps]).to(model.device))
@@ -128,6 +140,7 @@ def reference(weights_dir=FLAGSHIP, device="cuda") -> dict:
         return {
             "case": CASE,
             "bpd": {"steps": BPD_STEPS, "dtype": "bfloat16",
+                    "use_pallas": checkpoint_meta(weights_dir)["config"]["model"]["use_pallas"],
                     "value": heldout_bpd(weights_dir, dev)},
             "rollout": {"dtype": "float32", "seed": ROLLOUT_SEED, "n_samples": ROLLOUT_MEMBERS,
                         "steps": ROLLOUT_STEPS, "grid": GRID,
