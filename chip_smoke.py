@@ -30,14 +30,25 @@ and read just after:
   * the rollout CLI, ``python -m tpuflow_torch.cli.rollout``, in-process
     on a checkpoint in the exporter's format with a per-scale learned
     tau, 64 members, its LF input wrap-tiled (phase "rollout CLI");
-  * the committed trained flagship (``weights/r5_v3_deep_ft``) through the
-    rollout CLI's compute half at 64 members x 100 steps on its learned
-    tau, finite with the overflow redraw off; its f32 rollout on the
-    CPU's draws, card against CPU, and its bf16 held-out bits/dim in its
-    checkpoint's numerics (the default path's), both held to the CPU's
-    ``reference.json`` beside the weights; the 64-step held-out bits/dim
-    in both numerics beside the TPU's, for information (phase
-    "flagship");
+  * each committed trained checkpoint (``weights/r5_v3_deep_ft``, the
+    backward-step flagship, and ``weights/r5_cyl_ft``, the cylinder-array
+    one) through the rollout CLI's compute half at its preset (64 members
+    x 100 steps; 4 x 100 at 96 x 96) on its learned tau, finite with the
+    overflow redraw off, K2 timed on the inputs the trained nets give it;
+    its f32 rollout on the CPU's draws, card against CPU, and its bf16
+    held-out bits/dim in its checkpoint's numerics (the default path's) at
+    8 steps and at the evaluator's 64, all held to the CPU's
+    ``reference.json`` beside the weights; the 64-step bits/dim in the
+    fused numerics beside the TPU's, for information (phases "flagship
+    weights/...");
+  * the deployment chain on the backward-step flagship: the evaluator at
+    the preset (K2 at B = 256; ``test_bpd`` held to ``reference.json``,
+    every metric finite), the export of the serving artifact from the
+    evaluation's directory (its sidecar carrying the fitted calibration),
+    the server loading it, 64 members x 100 steps served against the
+    eager rollout on the same seed, plain and calibrated, timed in
+    interleaved pairs with each step's kernels profiled, and one
+    calibrated HTTP request (phase "deploy");
   * the ``cylinder-array`` case at its preset (4 members, 100 steps,
     96 x 96), with K2 held against its plain version and timed at the
     case's shapes (phase "cylinder");
@@ -210,20 +221,24 @@ STREAM_TOL_BPD = 1e-6
 # The streamed batch on the store's own constants against RAM's: the same
 # ulp apart, on inputs of order 1 (the CPU tests' bound, test_torch_tpf.py).
 STREAM_TOL_NORM = 1e-6
-# The flagship on the card: the committed weights (beside them the CPU's
-# reference.json) at the preset's 64 members x 100 steps. Its bf16 held-out
-# bits/dim is held to the CPU's at 1e-3 relative, the tolerance of the
-# port's bf16 numerics against JAX's fused path (tests/test_torch_evaluate.py
-# BF16_TOL); its f32 rollout at SLICE_TOL.
-FLAGSHIP_DIR = "weights/r5_v3_deep_ft"
-FLAGSHIP_STEPS = 100
+# The committed trained weights on the card, each beside the CPU's
+# reference.json: the backward-step flagship (runs/r5_v3_deep_ft step 16)
+# and the cylinder-array one (runs/r5_cyl_ft step 10), each at its preset
+# (64 members x 100 steps; 4 x 100). The bf16 held-out bits/dim (8 steps,
+# and the evaluator's own step count) is held to the CPU's at 1e-3
+# relative, the tolerance of the port's bf16 numerics against JAX's
+# (tests/test_torch_evaluate.py BF16_TOL); the f32 rollout at SLICE_TOL.
+FLAGSHIP_DIRS = ("weights/r5_v3_deep_ft", "weights/r5_cyl_ft")
 FLAGSHIP_TOL_BPD = 1e-3
-# The TPU's held-out bits/dim of the flagship, 64 steps x 4 test
-# trajectories, default numerics (runs/r5_v3_deep_ft/eval/backward-step/
-# eval_metrics.json "test_bpd", "backend": "tpu"); printed beside the
-# card's, for information: XLA on the TPU fuses (and rounds) otherwise.
-FLAGSHIP_TPU_TEST_BPD = -7.75687313079834
-FLAGSHIP_TEST_STEPS = 64
+# The TPU's evaluation of each (runs/r5_v3_deep_ft/eval/backward-step/ and
+# runs/r5_cyl_ft/eval64/cylinder-array/ eval_metrics.json, "backend":
+# "tpu"; 64 steps x 4 test trajectories, default numerics), printed beside
+# the card's for information, not as a gate: XLA on the TPU fuses (and
+# rounds) otherwise, and the card draws from a CUDA generator.
+TPU_EVAL = {"weights/r5_v3_deep_ft": {"test_bpd": -7.75687313079834,
+                                      "spread_scale": 1.2155625820159912},
+            "weights/r5_cyl_ft": {"test_bpd": -9.248455047607422,
+                                  "spread_scale": 3.65617299079895}}
 
 
 @contextlib.contextmanager
@@ -1357,13 +1372,6 @@ def evaluate_phase(cfg, dev, overrides=()) -> dict:
     check(saved == metrics and key_structure(saved) == METRIC_KEYS,
           "eval_metrics.json has the JAX evaluator's 102 keys and nesting")
 
-    def numbers(v):
-        if isinstance(v, dict):
-            return [x for u in v.values() for x in numbers(u)]
-        if isinstance(v, list):
-            return [x for u in v for x in numbers(u)]
-        return [] if isinstance(v, (str, bool)) else [v]
-
     bad = [k for k, v in saved.items() if not all(math.isfinite(x) for x in numbers(v))]
     check(not bad, f"every number of eval_metrics.json finite (not: {bad})")
     check(saved["backend"] == dev.type, f"backend {saved['backend']!r}")
@@ -1374,6 +1382,16 @@ def evaluate_phase(cfg, dev, overrides=()) -> dict:
         check(figures <= files, f"evaluator figures (missing {sorted(figures - files)})")
     return {"launches": launches, "seconds": elapsed, "stage_seconds": seconds,
             "k2_parity_max_abs_err": worst, "k2_shapes": times}
+
+
+def numbers(v) -> list:
+    """Every number in a metrics value (nested dicts and lists; strings and
+    booleans are not numbers)."""
+    if isinstance(v, dict):
+        return [x for u in v.values() for x in numbers(u)]
+    if isinstance(v, list):
+        return [x for u in v for x in numbers(u)]
+    return [] if isinstance(v, (str, bool)) else [v]
 
 
 def finetune_parity_phase(case, dev, b=4, m=6) -> dict:
@@ -2255,18 +2273,80 @@ def tools_phase(case, dev) -> dict:
     return res
 
 
-def flagship_phase(dev, overrides=()) -> dict:
-    """The committed flagship (``weights/r5_v3_deep_ft``: ``runs/r5_v3_deep_ft``
-    step 16 through ``tools/export_to_torch.py``, fine-tuned, with a learned
-    per-scale tau in its meta) through the rollout CLI's compute half at the
-    preset's 64 members x 100 steps, bf16 nets, the overflow redraw off:
-    every statistic finite, K2 counted over the warm-up, the timed run and
-    the samples grid. Then, held to the CPU and to the CPU's
-    ``reference.json`` beside the weights
-    (``tpuflow_torch.tools.weights_reference``): the f32 rollout on draws
-    made on the CPU, card against CPU in this call, at SLICE_TOL x max(1,
-    max |ref|); the bf16 held-out bits/dim at FLAGSHIP_TOL_BPD relative.
-    ``overrides`` (key=value) shrink the CLI run for a rehearsal."""
+def committed_weights(weights_dir: str):
+    """(absolute path, case, checkpoint meta) of a committed weights
+    directory, printing its step, loader and learned tau."""
+    import torch
+
+    from tpuflow_torch.tools import weights_reference as wr
+    from tpuflow_torch.train import Checkpointer
+
+    weights = pathlib.Path(__file__).resolve().parent / weights_dir
+    case = wr.case_of(weights)
+    ckpt = Checkpointer(weights / case)
+    meta = ckpt.restore(map_location="cpu")["meta"]
+    print(f"  {weights_dir} ({case}): step {ckpt.latest_step()} loaded by torch "
+          f"{torch.__version__}; fixture v{meta['config']['data']['fixture_version']}, learned "
+          f"tau {meta['learned_tau']}", flush=True)
+    return weights, case, meta
+
+
+def k2_captured_times(run, label: str) -> list[dict]:
+    """K2 on the inputs a model's own rollout gives it: ``run()`` drives the
+    model while the coupling's calls to K2 are recorded, and the first call
+    at each shape is timed in a CUDA graph of 20 beside its bound and its
+    plain version (and cuDNN's five bf16 convs at its shape, a yardstick),
+    as :func:`k2_times` times random inputs."""
+    import torch
+
+    from tpuflow_torch.flows import coupling
+    from tpuflow_torch.kernels.coupling_fused import fused_coupling, fused_coupling_reference
+
+    calls: dict = {}
+    orig = coupling.fused_coupling
+
+    def record(xa, xb, h0c, net, *, reverse=False):
+        key = (tuple(xa.shape), reverse)
+        if key not in calls:
+            calls[key] = (xa.clone(), xb.clone(), None if h0c is None else h0c.clone(), net)
+        return orig(xa, xb, h0c, net, reverse=reverse)
+
+    coupling.fused_coupling = record
+    try:
+        run()
+    finally:
+        coupling.fused_coupling = orig
+    out = []
+    for (shape, reverse), (xa, xb, h0c, net) in calls.items():
+        b, h, w, ca = shape
+        ms = time_graph_ms(lambda: fused_coupling(xa, xb, h0c, net, reverse=reverse), 20)
+        plain_ms = time_graph_ms(
+            lambda: fused_coupling_reference(xa, xb, h0c, net, reverse=reverse), 20)
+        chain_ms = cudnn_chain_ms(b, h, w, ca, net.width, net.growth, net.layers, xa.device)
+        bound_ms, bound_by, _, _ = k2_bound(xa, xb, h0c, net, net.growth, net.layers)
+        out.append(dict(shape=list(shape), reverse=reverse, ms=ms, plain_ms=plain_ms,
+                        cudnn_chain_ms=chain_ms, bound_ms=bound_ms, bound_by=bound_by))
+        print(f"  K2 on {label}, {'reverse' if reverse else 'forward'} {list(shape)}, "
+              f"{'fused' if net.fused else 'default'} numerics: {ms:.5f} ms/launch in a graph "
+              f"(bound {bound_ms:.5f} ms by {bound_by}); plain version {plain_ms:.4f} ms; "
+              f"cuDNN's five bf16 convs {chain_ms:.5f} ms [{SMI[0]}]", flush=True)
+    return out
+
+
+def flagship_phase(dev, weights_dir: str, overrides=()) -> dict:
+    """Committed trained weights (``FLAGSHIP_DIRS``: ``tools/export_to_torch.py``
+    of a fine-tuned JAX checkpoint, with a learned per-scale tau in its meta)
+    through the rollout CLI's compute half at the case preset's members and
+    steps, bf16 nets, in the checkpoint's fixture and numerics, the overflow
+    redraw off: every statistic finite, K2 counted over the warm-up, the
+    timed run and the samples grid, and timed on the rollout's own inputs.
+    Then, held to the CPU and to the CPU's ``reference.json`` beside the
+    weights (``tpuflow_torch.tools.weights_reference``): the f32 rollout on
+    draws made on the CPU, card against CPU in this call, at SLICE_TOL x
+    max(1, max |ref|); the bf16 held-out bits/dim at 8 steps and at the
+    evaluator's step count, at FLAGSHIP_TOL_BPD relative; the latter in the
+    other numerics too, beside the TPU's, for information. ``overrides``
+    (key=value) shrink the CLI run for a rehearsal."""
     import json
     import tempfile
 
@@ -2275,50 +2355,57 @@ def flagship_phase(dev, overrides=()) -> dict:
 
     from tpuflow_torch.cli import rollout as rollout_cli
     from tpuflow_torch.configs import load_case, parse_cli_overrides
+    from tpuflow_torch.data import load_dataset
+    from tpuflow_torch.eval import load_eval_bundle, make_ensemble_rollout, resolve_temperature
     from tpuflow_torch.kernels import coupling_fused
     from tpuflow_torch.tools import weights_reference as wr
-    from tpuflow_torch.train import Checkpointer
 
-    weights = pathlib.Path(__file__).resolve().parent / FLAGSHIP_DIR
+    weights, case_name, meta = committed_weights(weights_dir)
     want = json.loads((weights / "reference.json").read_text())
-    ckpt = Checkpointer(weights / "backward-step")
-    meta = ckpt.restore(map_location="cpu")["meta"]
-    print(f"  {FLAGSHIP_DIR}: step {ckpt.latest_step()} loaded by torch {torch.__version__}; "
-          f"learned tau {meta['learned_tau']}", flush=True)
+    check(want["case"] == case_name, f"{weights_dir}/reference.json is {case_name}'s")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_flagship_") as tmp:
         args = [f"train.checkpoint_dir={weights}",
                 f"data.fixture_version={meta['config']['data']['fixture_version']}",
-                f"eval.n_samples={N_MEMBERS}", f"eval.rollout_steps={FLAGSHIP_STEPS}",
                 "eval.overflow_redraw=false", f"eval.output_dir={tmp}", *overrides]
-        cfg = load_case("backward-step", parse_cli_overrides(args))
+        cfg = load_case(case_name, parse_cli_overrides(args))
         check(cfg.model.compute_dtype == "bfloat16" and not cfg.eval.overflow_redraw,
               "bf16 nets, the redraw off")
         check(not cfg.model.use_pallas and meta["config"]["model"]["use_pallas"] is False,
-              "the flagship rolls out in its checkpoint's numerics, the default path's")
+              "the weights roll out in their checkpoint's numerics, the default path's")
         coupling_fused.launches = 0
         metrics, _ = rollout_cli.rollout(cfg, dev)
         torch.cuda.synchronize()
         launches = coupling_fused.launches
-        with np.load(pathlib.Path(tmp) / "backward-step" / "rollout_stats.npz") as f:
+        with np.load(pathlib.Path(tmp) / case_name / "rollout_stats.npz") as f:
             stats = {k: f[k] for k in f.files}
     T, n = metrics["steps"], metrics["n_samples"]
     t_mid = min(T, cfg.data.train_steps) // 2
     per_step = cfg.model.n_scales * cfg.model.n_flow_steps
     expected = per_step * (2 * T + t_mid + 1)
-    print(f"  {n} members x {T} steps, bf16, learned tau {metrics['temperature']}, redraw off: "
-          f"{metrics['rollout_steps_per_sec']:.3f} steps/s (the CLI's timed run) [{SMI[0]}]; "
-          f"K2 launches {launches} (expected {per_step} x ({T} x 2 runs + {t_mid + 1} "
-          "samples-grid steps))", flush=True)
-    check(launches == expected, "K2 launch count of the flagship rollout")
+    print(f"  {n} members x {T} steps at {cfg.model.hf_shape}, bf16, learned tau "
+          f"{metrics['temperature']}, redraw off: {metrics['rollout_steps_per_sec']:.3f} steps/s "
+          f"(the CLI's timed run) [{SMI[0]}]; K2 launches {launches} (expected {per_step} x "
+          f"({T} x 2 runs + {t_mid + 1} samples-grid steps))", flush=True)
+    check(launches == expected, f"K2 launch count of the {case_name} rollout")
     check(all(abs(a - b) < 1e-6 for a, b in zip(metrics["temperature"], meta["learned_tau"])),
-          "the flagship rolls out at its learned tau")
+          f"{case_name} rolls out at its learned tau")
     shape = (T, *cfg.model.hf_shape, cfg.model.channels)
     for k, v in stats.items():
         print(f"  {k}: finite {bool(np.isfinite(v).all())}, max |{k}| {np.abs(v).max():.4f}",
               flush=True)
         check(v.shape == shape and bool(np.isfinite(v).all()),
-              f"flagship {k} {v.shape} finite with the redraw off")
-    check(bool((stats["var"] >= 0).all()), "flagship var >= 0")
+              f"{case_name} {k} {v.shape} finite with the redraw off")
+    check(bool((stats["var"] >= 0).all()), f"{case_name} var >= 0")
+    res = {"launches": launches, "steps_per_sec": metrics["rollout_steps_per_sec"],
+           "f32_err": {}, "f32_err_vs_reference": {}}
+
+    # K2 on the trained nets: one rollout step of the preset's members.
+    model, norm, bundle_meta = load_eval_bundle(cfg, device=dev)
+    lf = torch.from_numpy(load_dataset(cfg.data, cfg.model, "test", norm=norm).lf[0, :1]).to(dev)
+    roll = make_ensemble_rollout(model, n, resolve_temperature(cfg, bundle_meta, device=dev))
+    res["k2_shapes"] = k2_captured_times(
+        lambda: roll(lf, torch.Generator(dev).manual_seed(0)), f"{case_name}'s trained nets")
+    del model, roll
 
     # f32 on the CPU's draws: the card against the CPU, and both against
     # the committed reference.json.
@@ -2335,8 +2422,6 @@ def flagship_phase(dev, overrides=()) -> dict:
     t_card = time.perf_counter() - t0
     check(coupling_fused.launches == per_step * wr.ROLLOUT_STEPS,
           "K2 launch count of the f32 comparison rollout")
-    res = {"launches": launches, "steps_per_sec": metrics["rollout_steps_per_sec"],
-           "f32_err": {}, "f32_err_vs_reference": {}}
     for k in ("mean", "var"):
         scale = max(1.0, cpu[k].abs().max().item())
         err = (card[k] - cpu[k]).abs().max().item()
@@ -2345,7 +2430,7 @@ def flagship_phase(dev, overrides=()) -> dict:
               f"max abs err {err:.3e} (tol {SLICE_TOL} x {scale:.3f}); card {t_card:.2f} s, "
               f"CPU {t_cpu:.2f} s [{SMI[0]}]", flush=True)
         check(bool(torch.isfinite(card[k]).all()) and err <= SLICE_TOL * scale,
-              f"flagship f32 rollout {k}, card vs CPU")
+              f"{case_name} f32 rollout {k}, card vs CPU")
     for name, got in (("card", wr.summarize(card)), ("CPU", wr.summarize(cpu))):
         for k in ("mean", "var"):
             scale = max(1.0, max(ref["stats"][k]["max_abs"]))
@@ -2355,29 +2440,331 @@ def flagship_phase(dev, overrides=()) -> dict:
                 res["f32_err_vs_reference"][k] = err
             print(f"  f32 {k}, {name} vs reference.json: max abs err {err:.3e} "
                   f"(tol {SLICE_TOL} x {scale:.3f})", flush=True)
-            check(err <= SLICE_TOL * scale, f"flagship f32 {k}, {name} vs reference.json")
+            check(err <= SLICE_TOL * scale, f"{case_name} f32 {k}, {name} vs reference.json")
 
-    t0 = time.perf_counter()
-    bpd = wr.heldout_bpd(weights, dev)
-    rel = abs(bpd - want["bpd"]["value"]) / abs(want["bpd"]["value"])
-    res["bpd"], res["bpd_rel_err"] = bpd, rel
-    print(f"  bf16 held-out bits/dim ({want['bpd']['steps']} steps, 4 trajectories): card "
-          f"{bpd:.6f}, reference.json (CPU) {want['bpd']['value']:.6f}, relative {rel:.3e} "
-          f"(tol {FLAGSHIP_TOL_BPD}); {time.perf_counter() - t0:.2f} s [{SMI[0]}]", flush=True)
-    check(math.isfinite(bpd) and rel <= FLAGSHIP_TOL_BPD, "flagship bf16 bits/dim vs reference")
-
-    # For information: the evaluator's test_bpd on the card in each
-    # numerics, beside the TPU's.
-    res["test_bpd_by_numerics"] = {}
-    for name in NUMERICS:
+    # bf16 held-out bits/dim: 8 steps, then the evaluator's step count in
+    # the checkpoint's numerics (both gated) and in the fused ones (not).
+    tpu = TPU_EVAL[weights_dir]["test_bpd"]
+    res["bpd_rel_err"], res["test_bpd_by_numerics"] = {}, {}
+    for key, name in (("bpd", "default"), ("test_bpd", "default"), ("test_bpd", "fused")):
         t0 = time.perf_counter()
-        v = wr.heldout_bpd(weights, dev, FLAGSHIP_TEST_STEPS,
-                           **{"model.use_pallas": name == "fused"})
-        res["test_bpd_by_numerics"][name] = v
-        print(f"  bf16 held-out bits/dim, {FLAGSHIP_TEST_STEPS} steps x 4 trajectories, {name} "
-              f"numerics: card {v:.6f} (the TPU's evaluation {FLAGSHIP_TPU_TEST_BPD:.6f}, "
-              f"default numerics; not a gate); {time.perf_counter() - t0:.2f} s", flush=True)
-        check(math.isfinite(v), f"flagship {name} test bits/dim finite")
+        over = {"model.use_pallas": name == "fused"}
+        steps, v = ((wr.BPD_STEPS, wr.heldout_bpd(weights, dev, **over)) if key == "bpd"
+                    else wr.evaluator_bpd(weights, dev, **over))
+        line = (f"  bf16 held-out bits/dim, {steps} steps x 4 trajectories, {name} numerics: "
+                f"card {v:.6f}")
+        check(math.isfinite(v) and steps == want[key]["steps"], f"{case_name} {key} finite")
+        if key == "test_bpd":
+            res["test_bpd_by_numerics"][name] = v
+            line += f" (the TPU's evaluation {tpu:.6f}, default numerics; not a gate)"
+        if name == "default":
+            rel = abs(v - want[key]["value"]) / abs(want[key]["value"])
+            res["bpd_rel_err"][key] = rel
+            res[key] = v
+            line += (f", reference.json (CPU) {want[key]['value']:.6f}, relative {rel:.3e} "
+                     f"(tol {FLAGSHIP_TOL_BPD})")
+            check(rel <= FLAGSHIP_TOL_BPD, f"{case_name} bf16 {key} vs reference.json")
+        print(f"{line}; {time.perf_counter() - t0:.2f} s [{SMI[0]}]", flush=True)
+    return res
+
+
+def step_split(fn, steps: int) -> dict | None:
+    """Where the device time of ``fn()``, ``steps`` rollout steps, goes:
+    its kernels under ``torch.profiler`` (device activity only), per step:
+    their summed device ms, K2's share of it (by kernel name), the kernels
+    launched and the five largest. None if the profiler saw no kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpuflow_torch.tools.profile_rollout import device_time_by_kernel
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = device_time_by_kernel(prof.events())
+    if not rows:
+        return None
+    top = sorted(((ms / steps, n / steps, k[:80]) for (_, k), (ms, n) in rows.items()),
+                 reverse=True)[:5]
+    return {"busy_ms": sum(ms for ms, _ in rows.values()) / steps,
+            "k2_ms": sum(ms for (g, _), (ms, _) in rows.items() if g == "K2") / steps,
+            "kernels": sum(n for _, n in rows.values()) / steps, "top": top}
+
+
+def deploy_phase(dev, overrides=()) -> dict:
+    """The JAX package's deployment chain on the committed backward-step
+    flagship (``FLAGSHIP_DIRS[0]``), in order, each stage with the K2 count
+    set to 0 just before it and read just after:
+
+      * evaluate: ``cli.evaluate.evaluate`` (the CLI's compute half; its
+        ``main`` where matplotlib is installed) at the preset (fixture v3,
+        64 members, 4 test trajectories batched at K2's B = 256, 32
+        calibration and 256 reference steps) into a temporary
+        ``eval.output_dir``: every metric finite, coverages in [0, 1], the
+        fitted ``spread_scale`` and ``interval_scales`` positive, ``test_bpd``
+        within FLAGSHIP_TOL_BPD of ``reference.json``; the sampled metrics
+        beside the TPU's evaluation, for information;
+      * export: ``tools.export_rollout.main`` from that directory at bf16 in
+        the checkpoint's numerics, the learned tau as the default: the
+        sidecar carries the evaluation's ``spread_scale`` and
+        ``interval_scales``;
+      * load: ``tools.serve.RolloutServer``;
+      * serve: 64 members x 100 steps (the LF wrap-tiled over the 64 stored
+        steps, as the rollout CLI tiles it), the served stats against
+        ``make_ensemble_rollout`` on the same seed at SERVE_TOL (bit-equality
+        reported), the calibrated variance equal to the variance times
+        ``spread_scale`` squared with the mean unchanged, K2 at 24 launches
+        per served step; served and eager steps/s in SERVE_PAIRS
+        interleaved pairs, then each step's kernels under ``torch.profiler``
+        against its untraced time (:func:`step_split`);
+      * HTTP: one ``POST /rollout?calibrated=1`` on localhost in physical
+        units, its bytes against Content-Length and its arrays equal to the
+        direct call's.
+
+    ``overrides`` (key=value) shrink it for a rehearsal."""
+    import io
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from tpuflow_torch.cli import evaluate as evaluate_cli
+    from tpuflow_torch.configs import load_case, parse_cli_overrides
+    from tpuflow_torch.data import load_dataset
+    from tpuflow_torch.eval import (
+        load_eval_bundle,
+        make_batched_ensemble_rollout,
+        make_ensemble_rollout,
+        resolve_temperature,
+    )
+    from tpuflow_torch.eval.metrics import METRIC_KEYS, key_structure
+    from tpuflow_torch.kernels import coupling_fused
+    from tpuflow_torch.tools import export_rollout
+    from tpuflow_torch.tools.serve import RolloutServer, make_http_server
+
+    weights_dir = FLAGSHIP_DIRS[0]
+    weights, case_name, meta = committed_weights(weights_dir)
+    want = json.loads((weights / "reference.json").read_text())["test_bpd"]
+    tpu = TPU_EVAL[weights_dir]
+    res: dict = {"launches_by_stage": {}, "seconds": {}}
+
+    def stage(name, fn):
+        """``fn()`` with K2 counted and its seconds kept."""
+        coupling_fused.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        res["seconds"][name] = time.perf_counter() - t0
+        res["launches_by_stage"][name] = coupling_fused.launches
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_deploy_") as tmp:
+        args = [f"train.checkpoint_dir={weights}",
+                f"data.fixture_version={meta['config']['data']['fixture_version']}",
+                f"eval.output_dir={tmp}", *overrides]
+        case = load_case(case_name, parse_cli_overrides(args))
+        e, mc = case.eval, case.model
+        if not overrides:
+            check(e.n_samples == 64 and e.traj_batch == 4 and e.calibration_steps == 32
+                  and e.ref_steps == 256 and e.rollout_steps == 100, "the preset's eval section")
+        check(mc.compute_dtype == "bfloat16" and not mc.use_pallas,
+              "bf16 nets in the checkpoint's numerics, the default path's")
+
+        # evaluate
+        seconds: dict = {}
+        if has_matplotlib():
+            metrics = stage("evaluate", lambda: evaluate_cli.main(
+                [case_name, *args, "--device", dev.type], seconds))
+        else:
+            print(f"  figures: not drawn on the card: matplotlib is not installed here, so "
+                  f"{evaluate_cli.PROG} stops at its start; ran its compute half", flush=True)
+            metrics = stage("evaluate", lambda: evaluate_cli.evaluate(case, dev, seconds)[0])
+        launches = res["launches_by_stage"]["evaluate"]
+        per_step = mc.n_scales * mc.n_flow_steps
+        T, n_traj = metrics["steps"], case.data.n_test_traj
+        t_cal = min(e.calibration_steps, T)
+        chunks = -(-n_traj // min(e.traj_batch, n_traj))
+        n_fit, n_hold = len(range(0, n_traj, 2)), len(range(1, n_traj, 2))
+        cal_runs = 1 + 2 * (n_fit - 1) + n_hold  # as evaluate_phase counts them
+        expected = per_step * (T + chunks * T + cal_runs * t_cal)
+        # A redraw re-runs one step of the reverse: 24 more launches each.
+        redraws, rest = divmod(launches - expected, per_step)
+        res["redraws"] = redraws
+        b = min(e.traj_batch, n_traj) * e.n_samples
+        print(f"  evaluate: {n_traj} trajectories x {e.n_samples} members (K2 at B = {b}), {T} "
+              f"steps, calibration {t_cal}, reference {metrics['ref_steps']}: "
+              f"{res['seconds']['evaluate']:.2f} s; K2 launches {launches} (expected {per_step} x "
+              f"({T} NLL + {chunks} x {T} batched + {cal_runs} x {t_cal} calibration) = "
+              f"{expected}); overflow redraw {'on' if e.overflow_redraw else 'off'}, "
+              f"fired {redraws} times", flush=True)
+        print(f"  stage seconds ({SMI[0]}): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()), flush=True)
+        check(rest == 0 and redraws >= 0 and (e.overflow_redraw or redraws == 0),
+              "K2 launch count of the evaluator on the flagship")
+        check(key_structure(metrics) == METRIC_KEYS, "eval_metrics.json has the 102 keys")
+        bad = [k for k, v in metrics.items() if not all(math.isfinite(x) for x in numbers(v))]
+        check(not bad, f"every metric of the flagship's evaluation finite (not: {bad})")
+        coverages = [x for k, v in metrics.items() if k.startswith("coverage")
+                     for x in numbers(v)]
+        check(coverages and all(0.0 <= x <= 1.0 for x in coverages), "coverages in [0, 1]")
+        check(metrics["spread_scale"] > 0 and all(v > 0 for v in
+                                                  metrics["interval_scales"].values()),
+              "fitted spread_scale and interval_scales > 0")
+        rel = abs(metrics["test_bpd"] - want["value"]) / abs(want["value"])
+        res.update(test_bpd=metrics["test_bpd"], test_bpd_rel_err=rel,
+                   spread_scale=metrics["spread_scale"],
+                   interval_scales=metrics["interval_scales"], crps_mean=metrics["crps_mean"],
+                   field_rel_l2_mean=metrics["field_rel_l2_mean"])
+        print(f"  test_bpd {metrics['test_bpd']:.6f} ({T} steps), reference.json (CPU) "
+              f"{want['value']:.6f} ({want['steps']} steps), relative {rel:.3e} (tol "
+              f"{FLAGSHIP_TOL_BPD})", flush=True)
+        print(f"  sampled, not a gate (card / the TPU's evaluation): spread_scale "
+              f"{metrics['spread_scale']:.4f} / {tpu['spread_scale']:.4f}, test_bpd "
+              f"{metrics['test_bpd']:.4f} / {tpu['test_bpd']:.4f}; interval_scales "
+              f"{metrics['interval_scales']}, coverage {metrics['coverage']}, crps_mean "
+              f"{metrics['crps_mean']:.5f}, field_rel_l2_mean "
+              f"{metrics['field_rel_l2_mean']:.4f}", flush=True)
+        check(T == want["steps"] and rel <= FLAGSHIP_TOL_BPD,
+              "the evaluator's test_bpd against reference.json")
+
+        # export
+        path = stage("export", lambda: export_rollout.main(
+            [case_name, *args, "--device", dev.type]))
+        sidecar = json.loads(path.with_suffix(".meta.json").read_text())
+        res["bytes"] = path.stat().st_size
+        print(f"  export: {res['seconds']['export']:.2f} s, {res['bytes']} bytes; sidecar "
+              f"spread_scale {sidecar.get('spread_scale')}, interval_scales "
+              f"{sidecar.get('interval_scales')}, default_temperature "
+              f"{sidecar['default_temperature']}", flush=True)
+        check(sidecar.get("spread_scale") == metrics["spread_scale"]
+              and sidecar.get("interval_scales") == metrics["interval_scales"],
+              "the sidecar carries the evaluation's calibration")
+        check(all(abs(a - b) < 1e-6 for a, b in zip(sidecar["default_temperature"],
+                                                      meta["learned_tau"]))
+              and (sidecar["n_samples"], sidecar["rollout_steps"]) == (e.n_samples,
+                                                                         e.rollout_steps),
+              "the sidecar's learned tau, members and steps")
+
+        # load
+        server = stage("load", lambda: RolloutServer(path, device=dev))
+        print(f"  load: {res['seconds']['load']:.2f} s", flush=True)
+
+        # serve
+        model, norm, bundle_meta = load_eval_bundle(case, device=dev)
+        ds = load_dataset(case.data, case.model, "test", norm=norm)
+        steps, n = e.rollout_steps, e.n_samples
+        lf = np.concatenate([ds.lf[0]] * -(-steps // ds.n_steps))[:steps]
+        lf_dev = torch.from_numpy(lf).to(dev)
+        tau = resolve_temperature(case, bundle_meta, device=dev)
+        # K2 on the trained nets at the evaluator's batch: one step of its
+        # batched rollout over traj_batch trajectories.
+        b_traj = min(e.traj_batch, ds.n_traj)
+        lfs = torch.from_numpy(ds.lf[:b_traj, :1]).to(dev)
+        res["k2_shapes"] = k2_captured_times(
+            lambda: make_batched_ensemble_rollout(model, n, tau)(
+                lfs, [torch.Generator(dev).manual_seed(i) for i in range(b_traj)]),
+            f"{case_name}'s trained nets, the evaluator's batch")
+        eager = make_ensemble_rollout(model, n, tau, "stats")
+        server.rollout(lf, seed=3, normalized=True)  # warm-up: cuDNN plans, the allocator
+        eager(lf_dev[:2], torch.Generator(dev).manual_seed(3))
+        plain = stage("serve", lambda: server.rollout(lf, seed=4, normalized=True))
+        served_launches = res["launches_by_stage"]["serve"]
+        cal = server.rollout(lf, seed=4, normalized=True, calibrated=True)
+        with torch.no_grad():
+            ref = eager(lf_dev, torch.Generator(dev).manual_seed(4))
+        ref = {"mean": ds.denorm_hf(ref["mean"]).cpu().numpy(),
+               "var": ds.denorm_hf_var(ref["var"]).cpu().numpy()}
+        err = max(float(np.abs(plain[k] - ref[k]).max()) / max(1.0, float(np.abs(ref[k]).max()))
+                  for k in ref)
+        bit_equal = all(np.array_equal(plain[k], ref[k]) for k in ref)
+        s2 = np.float32(sidecar["spread_scale"]) ** 2
+        res.update(served_launches=served_launches, served_vs_eager_max_rel_err=err,
+                   served_bit_equal_eager=bit_equal)
+        print(f"  serve: {n} members x {steps} steps, K2 launches {served_launches} (expected "
+              f"{per_step} x {steps}); served vs eager stats {err:.3e} of max(1, max |ref|) (tol "
+              f"{SERVE_TOL['bfloat16']}), bit-equal {bit_equal}; calibrated var = var x "
+              f"{sidecar['spread_scale']:.6f}^2: "
+              f"{np.array_equal(cal['var'], plain['var'] * s2)}, mean unchanged "
+              f"{np.array_equal(cal['mean'], plain['mean'])}", flush=True)
+        check(served_launches == per_step * steps, "K2 launch count of the served flagship")
+        check(all(p.shape == (steps, *mc.hf_shape, mc.channels) and bool(np.isfinite(p).all())
+                  for p in plain.values()), "served flagship stats finite")
+        check(err <= SERVE_TOL["bfloat16"], "served flagship stats against the eager rollout")
+        check(np.array_equal(cal["mean"], plain["mean"])
+              and np.array_equal(cal["var"], plain["var"] * s2),
+              "calibrated variance = variance x spread_scale^2, the mean unchanged")
+        rates: dict = {"served": [], "eager": []}
+        for i in range(SERVE_PAIRS):
+            runs = (("served", lambda: server.rollout(lf, seed=10 + i, normalized=True)),
+                    ("eager", lambda: eager(lf_dev, torch.Generator(dev).manual_seed(10 + i))))
+            for name, run in runs:
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                rates[name].append(steps / (time.perf_counter() - t0))
+        ratio = sorted(s / e for s, e in zip(rates["served"], rates["eager"]))[SERVE_PAIRS // 2]
+        print(f"  {n} x {steps} steps/s, {SERVE_PAIRS} interleaved pairs: served "
+              f"{', '.join(f'{r:.3f}' for r in rates['served'])}; eager "
+              f"{', '.join(f'{r:.3f}' for r in rates['eager'])}; median served / eager "
+              f"{ratio:.3f} [{SMI[0]}]", flush=True)
+        res.update(served_steps_per_sec=rates["served"], eager_steps_per_sec=rates["eager"],
+                   served_over_eager=ratio)
+        # Where a step's time goes, served and eager: the device's kernels
+        # against the untraced step (the median of the pairs).
+        res["step_split"] = {}
+        for name, run in (("served", lambda: server.rollout(lf, seed=20, normalized=True)),
+                          ("eager", lambda: eager(lf_dev, torch.Generator(dev).manual_seed(20)))):
+            split = step_split(run, steps)
+            wall_ms = 1e3 / sorted(rates[name])[SERVE_PAIRS // 2]
+            if split is None:
+                print(f"  {name} step: device time not measured (the profiler saw no kernel)",
+                      flush=True)
+                continue
+            split.update(wall_ms=wall_ms, idle_share=1 - split["busy_ms"] / wall_ms)
+            res["step_split"][name] = split
+            print(f"  {name} step: {wall_ms:.3f} ms untraced, kernels {split['busy_ms']:.3f} ms "
+                  f"({split['kernels']:.0f} per step; K2 {split['k2_ms']:.3f} ms), device idle "
+                  f"{100 * split['idle_share']:.1f}% [{SMI[0]}]; largest: "
+                  + "; ".join(f"{ms:.3f} ms {n:.0f}x {k}" for ms, n, k in split["top"]),
+                  flush=True)
+
+        # HTTP, in physical units: the response against the direct call's.
+        lf_phys = ds.denorm_lf(lf)
+        direct = server.rollout(lf_phys, seed=4)
+        httpd = make_http_server(server, "127.0.0.1", 0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            buf = io.BytesIO()
+            np.savez(buf, lf=lf_phys)
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{httpd.server_address[1]}/rollout?seed=4&calibrated=1",
+                data=buf.getvalue(), method="POST")
+
+            def post():
+                with urllib.request.urlopen(req, timeout=300) as resp:
+                    return resp.read(), int(resp.headers["Content-Length"])
+
+            body, length = stage("http", post)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join()
+        with np.load(io.BytesIO(body)) as got:
+            got = {k: got[k] for k in got.files}
+        ok = (set(got) == {"mean", "var"} and np.array_equal(got["mean"], direct["mean"])
+              and np.array_equal(got["var"], direct["var"] * s2))
+        res.update(http_s=res["seconds"]["http"], http_bytes=len(body))
+        print(f"  HTTP POST /rollout?calibrated=1 on localhost: {res['http_s']:.3f} s, "
+              f"{len(body)} bytes (Content-Length {length}); mean = the direct call's, var = "
+              f"its var x spread_scale^2: {ok}; K2 launches "
+              f"{res['launches_by_stage']['http']}", flush=True)
+        check(len(body) == length, "HTTP response bytes against Content-Length")
+        check(ok, "the calibrated HTTP response against the direct call")
+        check(res["launches_by_stage"]["http"] == per_step * steps, "K2 launches of the request")
+    res["launches"] = sum(res["launches_by_stage"].values())
     return res
 
 
@@ -2484,8 +2871,13 @@ def main() -> int:
     with phase("rollout CLI"):
         cli = rollout_cli_phase(dev)
 
-    with phase("flagship"):
-        flagship = flagship_phase(dev)
+    flagships = {}
+    for weights_dir in FLAGSHIP_DIRS:
+        with phase(f"flagship {weights_dir}"):
+            flagships[weights_dir] = flagship_phase(dev, weights_dir)
+
+    with phase("deploy"):
+        deployed = deploy_phase(dev)
 
     with phase("cylinder"):
         cyl = cylinder_phase(dev)
@@ -2524,10 +2916,12 @@ def main() -> int:
                             tools.pop("k2_width128_max_abs_err"))
     k2["launches_by_path"] = {"rollout": launches, "train": train.pop("launches")}
     k2["launches_by_path"]["data_parallel_nccl"] = parallel.pop("nccl_launches")
-    for name, res in (("rollout_cli", cli), ("flagship", flagship), ("cylinder", cyl),
-                      ("batched", batched), ("redraw", redraw), ("evaluate", evaluated),
-                      ("finetune", finetuned), ("data_parallel", parallel), ("split", split),
-                      ("stream", streamed), ("serve", served), ("tools", tools)):
+    for name, res in (("rollout_cli", cli), ("flagship", flagships[FLAGSHIP_DIRS[0]]),
+                      ("flagship_cylinder", flagships[FLAGSHIP_DIRS[1]]), ("deploy", deployed),
+                      ("cylinder", cyl), ("batched", batched), ("redraw", redraw),
+                      ("evaluate", evaluated), ("finetune", finetuned),
+                      ("data_parallel", parallel), ("split", split), ("stream", streamed),
+                      ("serve", served), ("tools", tools)):
         k2["launches_by_path"][name] = res.pop("launches")
         k2[name] = res
     k2["train"] = train

@@ -1,18 +1,21 @@
 """The trained weights committed in the port's format, against their JAX
 sources.
 
-  * ``weights/r5_v3_deep_ft`` (the flagship, ``runs/r5_v3_deep_ft`` step
-    16) and ``runs/r5_eval_oracle_torch/weights`` (the evaluator oracle's,
+  * ``weights/r5_v3_deep_ft`` (the backward-step flagship,
+    ``runs/r5_v3_deep_ft`` step 16), ``weights/r5_cyl_ft`` (the
+    cylinder-array one, ``runs/r5_cyl_ft`` step 10) and
+    ``runs/r5_eval_oracle_torch/weights`` (the evaluator oracle's,
     ``runs/r4_bstep_deeper`` step 800) each equal a fresh export of their
     Orbax step through ``tools/export_to_torch.py``: every tensor, the
     norm and the meta (``learned_tau``, config), all but ``source``, which
     names the Orbax directory relative to the repo.
-  * ``weights/r5_v3_deep_ft/reference.json`` (what the card checks) holds
-    what ``tpuflow_torch.tools.weights_reference`` computes from the
-    committed flagship on the CPU: its f32 rollout's summary bit for bit
-    (deterministic on the CPU, one thread or eight, measured). Its bits/dim
-    (default numerics, the flagship's own) is held to a fresh computation
-    and to JAX's default path in ``tests/test_torch_bf16.py``.
+  * ``reference.json`` beside each committed flagship (what the card
+    checks) holds what ``tpuflow_torch.tools.weights_reference`` computes
+    from it on the CPU, bit for bit (deterministic on the CPU, one thread
+    or eight, measured): the f32 rollout's summary, the 8-step bf16
+    bits/dim and the evaluator's ``test_bpd`` at its own step count, both
+    in the checkpoint's default numerics. The flagship's 8-step bits/dim is
+    also held to JAX's default path in ``tests/test_torch_bf16.py``.
   * The flagship's bf16 rollout stats (2 members x 2 steps, JAX's draws as
     ``eps``) against JAX's in each numerics: the default path's
     (``use_pallas: false``, the flagship's own) and the fused coupling's
@@ -52,11 +55,15 @@ torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FLAGSHIP = ROOT / "weights" / "r5_v3_deep_ft"
+CYLINDER = ROOT / "weights" / "r5_cyl_ft"
 COMMITTED = {
     "flagship": ("runs/r5_v3_deep_ft/checkpoints", 16, FLAGSHIP),
+    "cylinder": ("runs/r5_cyl_ft/checkpoints", 10, CYLINDER),
     "oracle": ("runs/r4_bstep_deeper/checkpoints", 800,
                ROOT / "runs" / "r5_eval_oracle_torch" / "weights"),
 }
+# Each fine-tuned checkpoint's learned per-scale tau (its JAX meta).
+LEARNED_TAU = {"flagship": [0.8697, 0.8609, 0.8646], "cylinder": [0.7616, 0.7575, 0.8591]}
 BF16_TOL = 5e-3
 
 
@@ -71,8 +78,10 @@ def _exporter():
 @pytest.mark.parametrize("name", sorted(COMMITTED))
 def test_committed_weights_equal_a_fresh_export(tmp_path, name):
     orbax, step, weights = COMMITTED[name]
-    fresh_path = _exporter().export("backward-step", ROOT / orbax, tmp_path, step=step)
-    committed_path = weights / "backward-step" / f"ckpt_{step:08d}.pt"
+    case = wr.case_of(weights)
+    assert case == ("cylinder-array" if name == "cylinder" else "backward-step")
+    fresh_path = _exporter().export(case, ROOT / orbax, tmp_path, step=step)
+    committed_path = weights / case / f"ckpt_{step:08d}.pt"
     fresh = torch.load(fresh_path, weights_only=True)
     committed = torch.load(committed_path, weights_only=True)
     assert set(committed) == set(fresh) == {"model", "norm", "meta"}
@@ -85,25 +94,43 @@ def test_committed_weights_equal_a_fresh_export(tmp_path, name):
         k: v for k, v in fresh["meta"].items() if k != "source"}
     meta = committed["meta"]
     assert meta["config"]["data"]["fixture_version"] == (3 if name == "flagship" else 2)
-    if name == "flagship":
-        np.testing.assert_allclose(meta["learned_tau"], [0.8697, 0.8609, 0.8646], atol=1e-4)
+    assert meta["config"]["model"]["use_pallas"] is False
+    if name in LEARNED_TAU:
+        np.testing.assert_allclose(meta["learned_tau"], LEARNED_TAU[name], atol=1e-4)
+    if name == "cylinder":
+        assert meta["config"]["model"]["z_clip"] == 4.0
 
 
-def test_reference_json_is_the_cpus():
-    ref = json.loads((FLAGSHIP / "reference.json").read_text())
-    assert ref["case"] == wr.CASE
-    assert ref["bpd"]["steps"] == wr.BPD_STEPS and ref["bpd"]["dtype"] == "bfloat16"
+def _reference_is_the_cpus(weights, case):
+    """``weights``' reference.json against a fresh CPU computation."""
+    ref = json.loads((weights / "reference.json").read_text())
+    assert ref["case"] == wr.case_of(weights) == case
+    for key, steps in (("bpd", wr.BPD_STEPS), ("test_bpd", 64)):
+        assert (ref[key]["steps"], ref[key]["dtype"], ref[key]["use_pallas"]) == (
+            steps, "bfloat16", False), key
     r = ref["rollout"]
     assert (r["dtype"], r["seed"], r["n_samples"], r["steps"], r["grid"]) == (
         "float32", wr.ROLLOUT_SEED, wr.ROLLOUT_MEMBERS, wr.ROLLOUT_STEPS, wr.GRID)
     with torch.no_grad():
-        stats = wr.f32_rollout(FLAGSHIP, "cpu")
+        stats = wr.f32_rollout(weights, "cpu")
+        assert wr.heldout_bpd(weights, "cpu") == ref["bpd"]["value"]
+        assert wr.evaluator_bpd(weights, "cpu") == (64, ref["test_bpd"]["value"])
     assert all(bool(torch.isfinite(v).all()) for v in stats.values())
     assert wr.summarize(stats) == r["stats"]
     # The summary's grid holds the ensemble mean and variance as they are.
     for k, v in stats.items():
         assert np.asarray(r["stats"][k]["grid"]).shape == (
             wr.ROLLOUT_STEPS, v.shape[1] // wr.GRID * (v.shape[2] // wr.GRID) * v.shape[3])
+    return ref
+
+
+def test_reference_json_is_the_cpus():
+    _reference_is_the_cpus(FLAGSHIP, "backward-step")
+
+
+def test_cylinder_reference_json_is_the_cpus():
+    ref = _reference_is_the_cpus(CYLINDER, "cylinder-array")
+    assert abs(ref["bpd"]["value"] / -8.978182 - 1) < 1e-4
 
 
 _JAX_ROLLOUT = """

@@ -3,8 +3,9 @@
     python -m tpuflow_torch.tools.weights_reference [weights_dir] [--device cuda|cpu] [--write]
 
 ``weights_dir`` (default ``weights/r5_v3_deep_ft``, the flagship) is a
-``train.checkpoint_dir`` of the port holding ``backward-step/ckpt_*.pt``.
-Two numbers are computed from it on ``--device``:
+``train.checkpoint_dir`` of the port with one case subdirectory holding
+``ckpt_*.pt`` (``backward-step/`` or ``cylinder-array/``; :func:`case_of`).
+These are computed from it on ``--device``:
 
   * the held-out bits/dim at the checkpoint's bf16 nets, in its numerics
     (its meta's ``model.use_pallas``: the default path's on every committed
@@ -12,6 +13,10 @@ Two numbers are computed from it on ``--device``:
     the fixture version it was trained on, the first :data:`BPD_STEPS`
     steps of its 4 trajectories, teacher-forced from a zero ConvLSTM state
     and averaged (``tools/bf16_gap.py``'s "port" number);
+  * the same at the evaluator's own step count, ``min(eval.rollout_steps,
+    stored steps)`` of the case preset (64 for both committed checkpoints),
+    averaged as ``cli/evaluate.py`` averages its ``test_bpd``: over the
+    trajectories per step, then over the steps (:func:`evaluator_bpd`);
   * an f32 rollout of :data:`ROLLOUT_MEMBERS` members x
     :data:`ROLLOUT_STEPS` steps on the first test trajectory at the
     checkpoint's learned tau, its standard-normal draws made on the CPU
@@ -38,22 +43,28 @@ import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
-CASE = "backward-step"
 FLAGSHIP = ROOT / "weights" / "r5_v3_deep_ft"
 BPD_STEPS = 8
 ROLLOUT_SEED, ROLLOUT_MEMBERS, ROLLOUT_STEPS = 0, 4, 4
 GRID = 16
 
 
+def case_of(weights_dir) -> str:
+    """The case of ``weights_dir``: its one subdirectory holding ``ckpt_*.pt``."""
+    cases = sorted(p.name for p in pathlib.Path(weights_dir).iterdir()
+                   if p.is_dir() and any(p.glob("ckpt_*.pt")))
+    if len(cases) != 1:
+        raise ValueError(f"{weights_dir} must hold one case directory of checkpoints, "
+                         f"found {cases}")
+    return cases[0]
+
+
 def checkpoint_meta(weights_dir) -> dict:
     """The meta of the case's latest checkpoint under ``weights_dir``."""
     from tpuflow_torch.train import Checkpointer
 
-    ckpt = Checkpointer(pathlib.Path(weights_dir) / CASE)
-    step = ckpt.latest_step()
-    if step is None:
-        raise FileNotFoundError(f"no checkpoint under {pathlib.Path(weights_dir) / CASE}")
-    return ckpt.restore(step, "cpu")["meta"]
+    ckpt = Checkpointer(pathlib.Path(weights_dir) / case_of(weights_dir))
+    return ckpt.restore(ckpt.latest_step(), "cpu")["meta"]
 
 
 def load(weights_dir, device, **overrides):
@@ -68,22 +79,40 @@ def load(weights_dir, device, **overrides):
     over = {"train.checkpoint_dir": str(weights_dir),
             "data.fixture_version": meta["config"]["data"]["fixture_version"],
             "model.use_pallas": meta["config"]["model"]["use_pallas"], **overrides}
-    cfg = load_case(CASE, over)
+    cfg = load_case(case_of(weights_dir), over)
     model, norm, meta = load_eval_bundle(cfg, device=device)
     return cfg, model, norm, meta
 
 
-def heldout_bpd(weights_dir, device, steps: int = BPD_STEPS, **overrides) -> float:
-    """The held-out bits/dim at the checkpoint's own dtype and numerics
-    (``overrides``, key=value, may set others)."""
+def heldout_bpds(weights_dir, device, steps: int | None = None, **overrides) -> np.ndarray:
+    """The held-out bits/dim, (steps, trajectories), at the checkpoint's own
+    dtype and numerics (``overrides``, key=value, may set others); ``steps``
+    defaults to the evaluator's, ``min(eval.rollout_steps, stored steps)``."""
     from tpuflow_torch.data import load_dataset
     from tpuflow_torch.eval import make_nll_eval
 
     cfg, model, norm, _ = load(weights_dir, device, **overrides)
     ds = load_dataset(cfg.data, cfg.model, "test", norm=norm)
+    if steps is None:
+        steps = min(cfg.eval.rollout_steps, ds.n_steps)
     bpds = make_nll_eval(model)(torch.from_numpy(ds.lf[:, :steps]).to(model.device),
                                 torch.from_numpy(ds.hf[:, :steps]).to(model.device))
-    return float(bpds.cpu().numpy().mean())
+    return bpds.cpu().numpy()
+
+
+def heldout_bpd(weights_dir, device, steps: int = BPD_STEPS, **overrides) -> float:
+    """The mean of :func:`heldout_bpds` over ``steps`` steps."""
+    return float(heldout_bpds(weights_dir, device, steps, **overrides).mean())
+
+
+def evaluator_bpd(weights_dir, device, steps: int | None = None,
+                  **overrides) -> tuple[int, float]:
+    """(steps, value) of the evaluator's ``test_bpd`` for the checkpoint:
+    the per-step mean over the trajectories averaged over the steps, as
+    ``cli/evaluate.py`` computes it, at the evaluator's step count unless
+    ``steps`` is given."""
+    bpds = heldout_bpds(weights_dir, device, steps, **overrides)
+    return bpds.shape[0], float(np.mean(bpds.mean(axis=1)))
 
 
 def rollout_draws(cfg, seed: int = ROLLOUT_SEED, n: int = ROLLOUT_MEMBERS,
@@ -136,12 +165,15 @@ def reference(weights_dir=FLAGSHIP, device="cuda") -> dict:
     from tpuflow_torch.device import resolve_device
 
     dev = resolve_device(device)
+    use_pallas = checkpoint_meta(weights_dir)["config"]["model"]["use_pallas"]
     with torch.no_grad():
+        steps, value = evaluator_bpd(weights_dir, dev)
         return {
-            "case": CASE,
-            "bpd": {"steps": BPD_STEPS, "dtype": "bfloat16",
-                    "use_pallas": checkpoint_meta(weights_dir)["config"]["model"]["use_pallas"],
+            "case": case_of(weights_dir),
+            "bpd": {"steps": BPD_STEPS, "dtype": "bfloat16", "use_pallas": use_pallas,
                     "value": heldout_bpd(weights_dir, dev)},
+            "test_bpd": {"steps": steps, "dtype": "bfloat16", "use_pallas": use_pallas,
+                         "value": value},
             "rollout": {"dtype": "float32", "seed": ROLLOUT_SEED, "n_samples": ROLLOUT_MEMBERS,
                         "steps": ROLLOUT_STEPS, "grid": GRID,
                         "stats": summarize(f32_rollout(weights_dir, dev))},
